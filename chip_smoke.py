@@ -1,30 +1,44 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch/CUDA port: drives the plan/execute SpMV/SpMM
-path on one NVIDIA GPU at full matrix size and holds every kernel against
-its plain PyTorch version and a float64 CSR oracle.
+"""Chip smoke of the PyTorch/CUDA port: drives the plan/execute paths of
+spmv/spmm, spgemm and spadd on one NVIDIA GPU at full matrix size and holds
+every kernel against its plain PyTorch version and a float64 CSR oracle.
 
-    python3 chip_smoke.py            # needs one CUDA card; ~2-5 min
+    python3 chip_smoke.py            # needs one CUDA card; ~3-6 min
 
 Phases (any failure exits nonzero; nothing is caught and passed over):
-  1. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a) and
-     print the build time and the card's name and power limit;
-  2. main path: ``plan("spmv"|"spmm")`` over ELL and SELL on
-     ``gen_spatial(524288)`` (bs=32) and ``gen_zipf(8192)`` (bs=128) through
-     a ``PreparedStore``, then ``plan_bucket("spmv")`` over four distinct
-     ``gen_zipf`` members (one launch) and over four requests on one matrix
-     (one multi-RHS launch). The kernels' launch counts are zeroed just
-     before and read just after; each output is checked against the float64
-     oracle: ``max|y - y_ref| <= 1e-4 * max|y_ref|`` (fp32 sums of up to
-     8,192 products, taken in another order);
-  3. per kernel x input, at the main path's prepared shapes: the kernel
-     against its plain version (same inputs, same tolerance) and the oracle,
-     the kernel's median time (CUDA events, after warm-up), the plain
-     version's, one cuSPARSE call computing the same product
-     (``torch.sparse_csr_tensor(...) @ x``, a yardstick the port never
-     calls), and the byte/operation bound on an H100 (3.35 TB/s,
-     67 TFLOP/s fp32);
-  4. print the ``kernels`` JSON line, the card line and, last,
-     ``{"ok": true, "device": {...}}``.
+  1. build the three CUDA sources of ``src/repro_torch/csrc`` (one nvcc per
+     source, all started together, sm_90a) and print each build time and
+     the card's name and power limit;
+  2. matvec main path: ``plan("spmv"|"spmm")`` over ELL and SELL on
+     ``gen_spatial(524288)`` (bs=32) and ``gen_zipf(8192)`` (bs=128)
+     through a ``PreparedStore``, then ``plan_bucket("spmv")`` over four
+     distinct ``gen_zipf`` members (one launch) and over four requests on
+     one matrix (one multi-RHS launch); each output within
+     ``1e-4 * max|y_ref|`` of the float64 oracle (fp32 sums of up to 8,192
+     products, taken in another order);
+  3. spgemm main path: ``plan("spgemm", (A, A))`` with ``layout="ell"``
+     (padded pairs) and ``"sell"`` (flat cells) on ``gen_spatial(65536)``
+     (bs=32, C 9.55 GB) and ``gen_zipf(8192)`` (bs=128), then
+     ``plan_bucket("spgemm")`` in both layouts over the four zipf members
+     squared (one launch each);
+  4. spadd main path: ``plan("spadd", (A, B))`` on
+     ``gen_spatial(524288, seed=0) + gen_spatial(524288, seed=1)`` (bs=32)
+     and ``gen_zipf(8192, seed=0) + gen_zipf(8192, seed=1)`` (bs=128), then
+     ``plan_bucket("spadd")`` over four zipf pairs (one launch).
+     Phases 3-4 check C on the device, never through a dense C: its block
+     structure against the symbolic phase's, and C @ X on 8 random columns
+     against ``A @ (B @ X)`` (spgemm) or ``A @ X + B @ X`` (spadd) from the
+     float64 oracle, within ``1e-4 * max|ref|``;
+  5. per kernel x input, at the main path's prepared shapes: the kernel
+     against its plain version over the whole output (spgemm within
+     ``1e-4 * max|C_plain|``, spadd bit for bit), the kernel's median time
+     (CUDA events, after warm-up), the plain version's, one cuSPARSE call
+     computing the same product (``csr @ x``, ``csr @ csr``, ``csr + csr``;
+     a yardstick the port never calls) and the bound on an H100: the larger
+     of bytes / 3.35 TB/s and fp32 operations / 67 TFLOP/s.
+Each main path zeroes its kernels' launch counts just before it and reads
+them just after; every kernel must have launched there. The last lines are
+the ``kernels`` JSON line, the card line and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
@@ -33,6 +47,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -41,19 +56,33 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores
-TOL = 1e-4                         # relative to max|y_ref|
+TOL = 1e-4                         # relative to max|ref|
 K_RHS = 8
-SOURCE = "src/repro_torch/csrc/bsr_spmv.cu"
+CHUNK_BYTES = 256 << 20            # device-side checks work in chunks
+SOURCES = ("bsr_spmv", "bsr_spgemm", "bsr_spadd")
+KERNEL_SOURCE = {
+    "bsr_spmv_ell": "bsr_spmv", "bsr_spmm_ell": "bsr_spmv",
+    "bsr_spmv_sell": "bsr_spmv", "bsr_spmm_sell": "bsr_spmv",
+    "bsr_spgemm_pairs": "bsr_spgemm", "bsr_spgemm_cells": "bsr_spgemm",
+    "bsr_spadd": "bsr_spadd",
+}
 TPU_KERNELS = {                    # kernel -> the Pallas function it replaces
     "bsr_spmv_ell": "src/repro/kernels/bsr_spmv/kernel.py:78",
     "bsr_spmm_ell": "src/repro/kernels/bsr_spmv/kernel.py:112",
     "bsr_spmv_sell": "src/repro/kernels/bsr_spmv/kernel.py:144",
     "bsr_spmm_sell": "src/repro/kernels/bsr_spmv/kernel.py:183",
+    "bsr_spgemm_pairs": "src/repro/kernels/bsr_spgemm/kernel.py:96",
+    "bsr_spgemm_cells": "src/repro/kernels/bsr_spgemm/kernel.py:44",
+    "bsr_spadd": "src/repro/kernels/bsr_spadd/kernel.py:32",
 }
 
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
+
+
+def emit(record: dict) -> None:
+    print(json.dumps(record), flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -86,12 +115,63 @@ def cuda_timer(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def sync(device: str) -> None:
+    import torch
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
 
+
+def memory_line(phase: str, device: str) -> None:
+    """Peak device memory of a phase; frees the phase's cached blocks."""
+    import torch
+    if device != "cuda":
+        return
+    emit({"phase": phase,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def sched(layout: str, bs: int):
+    from repro_torch.core import Schedule
+    return (Schedule("bsr", bs, 1.0, layout="sell", slice_height=8)
+            if layout == "sell" else Schedule("bsr", bs, 1.0))
+
+
+def library_time(fn, timer, device: str):
+    """(ms, error, nnz) of one PyTorch sparse call, the yardstick: (None,
+    why, None) when the installed torch cannot run it on this device. A
+    call that takes over a second is timed once more instead of five
+    times. ``nnz`` is the stored count of a sparse result (else None)."""
+    try:
+        t0 = time.monotonic()
+        out = fn()
+        sync(device)
+        first_s = time.monotonic() - t0
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"{type(e).__name__}: {str(e)[:200]}", None
+    nnz = int(out._nnz()) if out.is_sparse_csr or out.is_sparse else None
+    del out
+    return timer(fn, iters=5 if first_s < 1 else 1, warmup=0), None, nnz
+
+
+def torch_csr(A, device: str):
+    import torch
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(A.row_ptrs.astype(np.int64), device=device),
+        torch.as_tensor(A.col_idxs.astype(np.int64), device=device),
+        torch.as_tensor(A.nnz_vals, device=device), size=A.shape,
+        check_invariants=True)
+
+
+# ------------------------------------------------------------ spmv / spmm
 
 def kernel_args(st, multi: bool):
     """(kernel name, CUDA wrapper, plain version, index tensors) of a
@@ -111,11 +191,19 @@ def kernel_args(st, multi: bool):
              idx))
 
 
-def bound(st, multi: bool, k: int):
-    """(bound_ms, bound_by, bytes, flops) of one launch on these inputs:
-    each index array, each referenced block (the real ones and the shared
-    zero block; bucket-pad blocks are never read), the blocked x and y once;
-    2*bs*bs*k operations per slot that holds a real block."""
+def bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the larger of the byte and operation times."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def matvec_work(st, multi: bool, k: int):
+    """(bytes, flops) of one launch on these inputs: each index array, each
+    referenced block (the real ones and the shared zero block; bucket-pad
+    blocks are never read), the blocked x and y once; 2*bs*bs*k operations
+    per slot that holds a real block."""
     bs = st.block_size
     zero = st._zero_idx
     blocks_bytes = (zero + 1) * bs * bs * 4
@@ -133,37 +221,27 @@ def bound(st, multi: bool, k: int):
     n_bc = -(-st.meta.shape[1] // bs)
     kk = k if multi else 1
     nbytes = blocks_bytes + index_bytes + 4 * kk * bs * (n_bc + n_br)
-    flops = 2.0 * n_real * bs * bs * kk
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations", nbytes, flops)
+    return nbytes, 2.0 * n_real * bs * bs * kk
 
 
-def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, seed: int,
-        timer) -> dict:
-    """All phases on ``device``; returns the ``kernels`` record."""
+def run_matvec(device: str, inputs, members, seed: int, timer) -> dict:
+    """The spmv/spmm main path and its four kernels' rows; returns
+    {kernel: [records]} and the main-path launch counts."""
     import torch
-    from repro_torch.core import (Schedule, gen_spatial, gen_zipf,
-                                  spmm_oracle, spmv_oracle)
+    from repro_torch.core import spmm_oracle, spmv_oracle
     from repro_torch.kernels.bsr_spmv import kernel as K
     from repro_torch.sparse import (PreparedStore, content_key, launch_count,
                                     plan, plan_bucket, reset_counters)
 
     rng = np.random.default_rng(seed)
     t0 = time.monotonic()
-    inputs = []
-    for name, gen, n, bs in (("spatial", gen_spatial, spatial_n, 32),
-                             ("zipf", gen_zipf, zipf_n, 128)):
-        A = gen(n, seed=seed)
-        x = rng.standard_normal(A.shape[1]).astype(np.float32)
-        X = rng.standard_normal((A.shape[1], K_RHS)).astype(np.float32)
-        inputs.append({"name": f"{name}_{n}_bs{bs}", "A": A, "bs": bs,
-                       "x": x, "X": X, "y_ref": spmv_oracle(A, x),
-                       "Y_ref": spmm_oracle(A, X)})
-        log(f"input {name} n={n}: nnz={A.nnz} "
-            f"({time.monotonic() - t0:.1f}s)")
-    members = [gen_zipf(n, seed=i) for i, n in enumerate(bucket_ns)]
+    for inp in inputs:
+        A = inp["A"]
+        inp["x"] = rng.standard_normal(A.shape[1]).astype(np.float32)
+        inp["X"] = rng.standard_normal((A.shape[1], K_RHS)).astype(
+            np.float32)
+        inp["y_ref"], inp["Y_ref"] = (spmv_oracle(A, inp["x"]),
+                                      spmm_oracle(A, inp["X"]))
     mxs = [rng.standard_normal(m.shape[1]).astype(np.float32)
            for m in members]
     m_refs = [spmv_oracle(m, x) for m, x in zip(members, mxs)]
@@ -172,11 +250,7 @@ def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, seed: int,
                for _ in range(4)]
     pure_refs = [spmv_oracle(pure, x) for x in pure_xs]
     member_keys = [content_key(m) for m in members]
-    log(f"host inputs and oracles ready ({time.monotonic() - t0:.1f}s)")
-
-    def sched(layout, bs):
-        return (Schedule("bsr", bs, 1.0, layout="sell", slice_height=8)
-                if layout == "sell" else Schedule("bsr", bs, 1.0))
+    log(f"matvec oracles ready ({time.monotonic() - t0:.1f}s)")
 
     # ---------------------------------------------------------- main path
     store = PreparedStore(byte_budget=16 << 30)
@@ -229,8 +303,8 @@ def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, seed: int,
         e = rel_err(y.cpu().numpy(), ref)
         check(e <= TOL, f"content-pure member {i} rel_err {e:.3e}")
     main_launches = dict(K.LAUNCHES)
-    log(f"main path {time.monotonic() - t_main:.1f}s, kernel launches "
-        f"{main_launches}, store {store.telemetry()['bytes_in_use']:.0f} B")
+    log(f"matvec main path {time.monotonic() - t_main:.1f}s, kernel "
+        f"launches {main_launches}")
     for name, n in main_launches.items():
         check(n > 0, f"kernel {name} launched on the main path")
 
@@ -238,11 +312,7 @@ def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, seed: int,
     results = {}
     for inp in inputs:
         A = inp["A"]
-        csr = torch.sparse_csr_tensor(
-            torch.as_tensor(A.row_ptrs.astype(np.int64), device=device),
-            torch.as_tensor(A.col_idxs.astype(np.int64), device=device),
-            torch.as_tensor(A.nnz_vals, device=device), size=A.shape,
-            check_invariants=True)
+        csr = torch_csr(A, device)
         for layout in ("ell", "sell"):
             st = prepared[(inp["name"], layout)]
             bs = st.block_size
@@ -259,8 +329,7 @@ def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, seed: int,
                 blocks = st.arrays["blocks"]
                 y_k = cuda_fn(*idx, blocks, xb)
                 y_p = plain_fn(*idx, blocks, xb)
-                if device == "cuda":
-                    torch.cuda.synchronize()
+                sync(device)
                 rows = A.shape[0]
                 yk = y_k.reshape(-1, *xh.shape[1:])[:rows].cpu().numpy()
                 yp = y_p.reshape(-1, *xh.shape[1:])[:rows].cpu().numpy()
@@ -275,29 +344,374 @@ def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, seed: int,
                 plain_ms = timer(lambda: plain_fn(*idx, blocks, xb),
                                  iters=5, warmup=1)
                 rhs = xt if multi else xt.unsqueeze(1)
-                lib_ms = timer(lambda: csr @ rhs)
-                b_ms, b_by, nbytes, flops = bound(st, multi, K_RHS)
+                lib_ms, lib_err, _ = library_time(lambda: csr @ rhs, timer,
+                                                  device)
+                nbytes, flops = matvec_work(st, multi, K_RHS)
+                b_ms, b_by = bound(nbytes, flops)
                 rec = {"kernel": name, "input": inp["name"],
                        "max_abs_err": float(np.abs(yk - yp).max()),
                        "rel_err_vs_plain": e_kp, "rel_err_vs_oracle": e_ko,
                        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "library_error": lib_err,
                        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                        "flops": flops, "share_of_bound": b_ms / ms}
-                print(json.dumps(rec), flush=True)
+                emit(rec)
                 results.setdefault(name, []).append(rec)
+    return results, main_launches
+
+
+# ------------------------------------------------------ spgemm / spadd
+
+def bsr_probe(C, X: np.ndarray, device: str) -> np.ndarray:
+    """float64 ``C @ X`` of a "bsr" SparseTensor, on its device, chunked
+    over C's blocks (C is never densified)."""
+    import torch
+    bs = C.block_size
+    blocks = C.arrays["blocks"]
+    ptrs = C.arrays["block_ptrs"].long()
+    cols = C.arrays["block_cols"].long()
+    n_br = ptrs.numel() - 1
+    rows = torch.repeat_interleave(torch.arange(n_br, device=device),
+                                   ptrs.diff())
+    n_bc = -(-C.shape[1] // bs)
+    xb = torch.zeros((n_bc * bs, X.shape[1]), dtype=torch.float64,
+                     device=device)
+    xb[: X.shape[0]] = torch.as_tensor(X, dtype=torch.float64, device=device)
+    xb = xb.view(n_bc, bs, X.shape[1])
+    y = torch.zeros((n_br, bs, X.shape[1]), dtype=torch.float64,
+                    device=device)
+    step = max(1, CHUNK_BYTES // (bs * bs * 8))
+    for c0 in range(0, blocks.shape[0], step):
+        prods = torch.bmm(blocks[c0:c0 + step].double(),
+                          xb[cols[c0:c0 + step]])
+        y.index_add_(0, rows[c0:c0 + step], prods)
+    return y.view(n_br * bs, -1)[: C.shape[0]].cpu().numpy()
+
+
+def check_product(C, structure, X, ref, what: str, device: str) -> float:
+    """C's block structure equals the symbolic phase's, its values are
+    finite, and C @ X is within TOL of the float64 reference."""
+    import torch
+    check(C.layout == "bsr" and C.device.type == device, f"{what}: device")
+    check(np.array_equal(C.arrays["block_ptrs"].cpu().numpy(),
+                         structure["c_ptrs"])
+          and np.array_equal(C.arrays["block_cols"].cpu().numpy(),
+                             structure["c_cols"])
+          and tuple(C.arrays["blocks"].shape) == (
+              structure["n_c"], structure["bs"], structure["bs"]),
+          f"{what}: structure is the symbolic phase's")
+    check(bool(torch.isfinite(C.arrays["blocks"]).all()),
+          f"{what}: finite blocks")
+    e = rel_err(bsr_probe(C, X, device), ref)
+    check(e <= TOL, f"{what}: probe rel_err {e:.3e}")
+    return e
+
+
+def diff_stats(a, b):
+    """(max|a - b|, max|b|) over two equal-shape tensors, chunked."""
+    fa, fb = a.reshape(-1), b.reshape(-1)
+    step = CHUNK_BYTES // 4
+    d = m = 0.0
+    for i in range(0, fa.numel(), step):
+        d = max(d, float((fa[i:i + step] - fb[i:i + step]).abs().max()))
+        m = max(m, float(fb[i:i + step].abs().max()))
+    return d, m
+
+
+def pairop_work(prep, mode: str):
+    """(bytes, flops, padded_slots) of one launch of a single plan: C
+    written once, each real A and B tile read once, the index arrays
+    launched; 2*bs^3 operations per REAL pair (spgemm) or one add per
+    element (spadd)."""
+    bs, n_c = prep["bs"], prep["n_c"]
+    tile = bs * bs * 4
+    nbytes = (n_c + prep["zero_a"] + prep["zero_b"]) * tile
+    padded = None
+    if mode == "pairs":
+        padded = n_c * int(prep["dev"]["pair_a"].shape[1])
+        nbytes += 2 * 4 * padded
+        flops = 2.0 * bs ** 3 * prep["n_pairs"]
+    elif mode == "cells":
+        nbytes += 4 * (2 * prep["dev"]["cell_a"].numel() + n_c + 1)
+        flops = 2.0 * bs ** 3 * prep["n_pairs"]
+    else:
+        nbytes += 2 * 4 * n_c
+        flops = float(n_c * bs * bs)
+    return nbytes, flops, padded
+
+
+def pairop_row(name: str, mode: str, inp_name: str, prep, lib_fn, timer,
+               device: str) -> dict:
+    """One kernel x input row: kernel against plain over all of C, times,
+    yardstick, bound."""
+    import torch
+    from repro_torch.sparse import ops_builtin
+    cuda_fn, plain_fn, _ = ops_builtin._PAIROP_FNS[mode]
+    args = ops_builtin.pairop_args(prep["dev"], mode, prep["n_c"])
+    c_k = cuda_fn(*args)
+    c_p = plain_fn(*args)
+    sync(device)
+    if mode == "spadd":
+        exact = bool(torch.equal(c_k, c_p))
+        check(exact, f"{name} on {inp_name}: kernel equals plain bit for bit")
+    d, m = diff_stats(c_k, c_p)
+    check(d <= TOL * m, f"{name} on {inp_name}: max|C_kernel - C_plain| "
+          f"{d:.3e} > {TOL} * {m:.3e}")
+    del c_k, c_p
+    ms = timer(lambda: cuda_fn(*args))
+    plain_ms = timer(lambda: plain_fn(*args), iters=3, warmup=1)
+    lib_ms, lib_err, lib_nnz = library_time(lib_fn, timer, device)
+    nbytes, flops, padded = pairop_work(prep, mode)
+    b_ms, b_by = bound(nbytes, flops)
+    rec = {"kernel": name, "input": inp_name, "max_abs_err": d,
+           "rel_err_vs_plain": d / max(m, 1e-30), "ms": ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library_error": lib_err, "library_nnz": lib_nnz,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "bytes": nbytes, "flops": flops, "share_of_bound": b_ms / ms,
+           "n_c": prep["n_c"], "real_pairs": prep.get("n_pairs"),
+           "padded_slots": padded}
+    emit(rec)
+    return rec
+
+
+def run_plan(op: str, pair, schedule, store, device: str, label: str):
+    """plan() + two executes (cold output allocation, then warm), both
+    timed by the plan itself; returns (plan, C of the second execute)."""
+    from repro_torch.sparse import plan
+    t0 = time.monotonic()
+    p = plan(op, pair, schedule=schedule, store=store, device=device)
+    prep_s = time.monotonic() - t0
+    p.execute()
+    first = p.last_measured_s
+    C = p.execute()
+    emit({"plan": op, "input": label, "prep_s": prep_s,
+          "execute_ms_first": first * 1e3,
+          "execute_ms": p.last_measured_s * 1e3})
+    return p, C
+
+
+def run_spgemm(device: str, gemm_inputs, members, member_keys, seed: int,
+               timer) -> tuple:
+    """The spgemm main path (both layouts, single plans and buckets) and
+    the two spgemm kernels' rows."""
+    import torch
+    from repro_torch.core import spmm_oracle
+    from repro_torch.kernels.bsr_spgemm import kernel as GK
+    from repro_torch.sparse import (PreparedStore, launch_count, plan_bucket,
+                                    reset_counters)
+
+    rng = np.random.default_rng(seed + 1)
+    t0 = time.monotonic()
+    for inp in gemm_inputs:
+        A = inp["A"]
+        inp["X"] = rng.standard_normal((A.shape[1], K_RHS))
+        inp["ref"] = spmm_oracle(A, spmm_oracle(A, inp["X"]))
+    mX = [rng.standard_normal((m.shape[1], K_RHS)) for m in members]
+    m_refs = [spmm_oracle(m, spmm_oracle(m, x)) for m, x in zip(members, mX)]
+    log(f"spgemm oracles ready ({time.monotonic() - t0:.1f}s)")
+
+    store = PreparedStore(byte_budget=64 << 30)
+    preps = {}
+    GK.reset_launch_counts()
+    reset_counters()
+    t_main = time.monotonic()
+    for inp in gemm_inputs:
+        for layout in ("ell", "sell"):
+            p, C = run_plan("spgemm", (inp["A"], inp["A"]),
+                            sched(layout, inp["bs"]), store, device,
+                            f"{inp['name']} {layout}")
+            prep = p.operands[0]
+            e = check_product(C, prep, inp["X"], inp["ref"],
+                              f"spgemm {inp['name']} {layout}", device)
+            log(f"spgemm {inp['name']} {layout}: n_c={prep['n_c']} "
+                f"pairs={prep['n_pairs']} probe rel_err={e:.3e} "
+                f"({p.last_measured_s * 1e3:.3f} ms)")
+            preps[(inp["name"], layout)] = prep
+            del C
+    pairs = [(m, m) for m in members]
+    keys = [k for k in member_keys for _ in range(2)]
+    for layout in ("ell", "sell"):
+        name = "bsr_spgemm_cells" if layout == "sell" else "bsr_spgemm_pairs"
+        bucket = plan_bucket("spgemm", pairs, sched(layout, 128),
+                             store=store, device=device, member_keys=keys)
+        before = (launch_count("spgemm"), GK.LAUNCHES[name])
+        Cs = bucket.execute()
+        after = (launch_count("spgemm"), GK.LAUNCHES[name])
+        log(f"spgemm bucket of {len(pairs)} {layout}: launch_count "
+            f"{before[0]} -> {after[0]}, {name} {before[1]} -> {after[1]} "
+            f"({bucket.last_measured_s * 1e3:.3f} ms)")
+        check(after[0] - before[0] == 1 and after[1] - before[1] == 1,
+              f"a spgemm bucket ({layout}) is exactly one launch")
+        emit({"plan": "spgemm_bucket", "input": f"zipf x{len(pairs)} "
+              f"{layout}", "execute_ms": bucket.last_measured_s * 1e3})
+        for i, (C, st) in enumerate(zip(Cs, bucket.operands[0]["members"])):
+            check_product(C, st, mX[i], m_refs[i],
+                          f"spgemm bucket {layout} member {i}", device)
+        del Cs, bucket
+    main_launches = dict(GK.LAUNCHES)
+    log(f"spgemm main path {time.monotonic() - t_main:.1f}s, kernel "
+        f"launches {main_launches}")
+    for name, n in main_launches.items():
+        check(n > 0, f"kernel {name} launched on the main path")
+
+    results = {}
+    for inp in gemm_inputs:
+        csr = torch_csr(inp["A"], device)
+        for layout in ("ell", "sell"):
+            mode = "cells" if layout == "sell" else "pairs"
+            name = f"bsr_spgemm_{mode}"
+            results.setdefault(name, []).append(pairop_row(
+                name, mode, inp["name"], preps[(inp["name"], layout)],
+                lambda: csr @ csr, timer, device))
+        del csr
+    del preps, store
+    return results, main_launches
+
+
+def run_spadd(device: str, add_inputs, add_pairs, seed: int,
+              timer) -> tuple:
+    """The spadd main path (single plans and one bucket) and the spadd
+    kernel's rows."""
+    from repro_torch.core import spmm_oracle
+    from repro_torch.kernels.bsr_spadd import kernel as AK
+    from repro_torch.sparse import (PreparedStore, content_key, launch_count,
+                                    plan_bucket, reset_counters)
+
+    rng = np.random.default_rng(seed + 2)
+    t0 = time.monotonic()
+    for inp in add_inputs:
+        inp["X"] = rng.standard_normal((inp["A"].shape[1], K_RHS))
+        inp["ref"] = (spmm_oracle(inp["A"], inp["X"])
+                      + spmm_oracle(inp["B"], inp["X"]))
+    bX = [rng.standard_normal((a.shape[1], K_RHS)) for a, _ in add_pairs]
+    b_refs = [spmm_oracle(a, x) + spmm_oracle(b, x)
+              for (a, b), x in zip(add_pairs, bX)]
+    keys = [content_key(m) for pair in add_pairs for m in pair]
+    log(f"spadd oracles ready ({time.monotonic() - t0:.1f}s)")
+
+    store = PreparedStore(byte_budget=64 << 30)
+    preps = {}
+    AK.reset_launch_counts()
+    reset_counters()
+    t_main = time.monotonic()
+    for inp in add_inputs:
+        p, C = run_plan("spadd", (inp["A"], inp["B"]), sched("ell", inp["bs"]),
+                        store, device, inp["name"])
+        prep = p.operands[0]
+        e = check_product(C, prep, inp["X"], inp["ref"],
+                          f"spadd {inp['name']}", device)
+        log(f"spadd {inp['name']}: n_c={prep['n_c']} probe rel_err={e:.3e} "
+            f"({p.last_measured_s * 1e3:.3f} ms)")
+        preps[inp["name"]] = prep
+        del C
+    bucket = plan_bucket("spadd", add_pairs, sched("ell", 128), store=store,
+                         device=device, member_keys=keys)
+    before = (launch_count("spadd"), AK.LAUNCHES["bsr_spadd"])
+    Ds = bucket.execute()
+    after = (launch_count("spadd"), AK.LAUNCHES["bsr_spadd"])
+    log(f"spadd bucket of {len(add_pairs)}: launch_count {before[0]} -> "
+        f"{after[0]}, bsr_spadd {before[1]} -> {after[1]} "
+        f"({bucket.last_measured_s * 1e3:.3f} ms)")
+    check(after[0] - before[0] == 1 and after[1] - before[1] == 1,
+          "a spadd bucket is exactly one launch")
+    emit({"plan": "spadd_bucket", "input": f"zipf x{len(add_pairs)}",
+          "execute_ms": bucket.last_measured_s * 1e3})
+    for i, (D, st) in enumerate(zip(Ds, bucket.operands[0]["members"])):
+        check_product(D, st, bX[i], b_refs[i], f"spadd bucket member {i}",
+                      device)
+    del Ds, bucket
+    main_launches = dict(AK.LAUNCHES)
+    log(f"spadd main path {time.monotonic() - t_main:.1f}s, kernel "
+        f"launches {main_launches}")
+    check(main_launches["bsr_spadd"] > 0, "bsr_spadd launched on the main "
+          "path")
+
+    results = {"bsr_spadd": []}
+    for inp in add_inputs:
+        ca, cb = torch_csr(inp["A"], device), torch_csr(inp["B"], device)
+        results["bsr_spadd"].append(pairop_row(
+            "bsr_spadd", "spadd", inp["name"], preps[inp["name"]],
+            lambda: ca + cb, timer, device))
+        del ca, cb
+    del preps, store
+    return results, main_launches
+
+
+def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, gemm_n: int,
+        seed: int, timer) -> dict:
+    """All phases on ``device``; returns the ``kernels`` record."""
+    from repro_torch.core import gen_spatial, gen_zipf
+    from repro_torch.sparse import content_key
+
+    t0 = time.monotonic()
+    spatial = gen_spatial(spatial_n, seed=seed)
+    members = [gen_zipf(n, seed=i) for i, n in enumerate(bucket_ns)]
+    zipf = members[0] if bucket_ns[0] == zipf_n else gen_zipf(zipf_n,
+                                                                 seed=seed)
+    member_keys = [content_key(m) for m in members]
+    log(f"inputs generated ({time.monotonic() - t0:.1f}s)")
+
+    results, launches = run_matvec(
+        device, [{"name": f"spatial_{spatial_n}_bs32", "A": spatial,
+                  "bs": 32},
+                 {"name": f"zipf_{zipf_n}_bs128", "A": zipf, "bs": 128}],
+        members, seed, timer)
+    memory_line("matvec", device)
+
+    gemm_inputs = [{"name": f"spatial_{gemm_n}_bs32",
+                    "A": gen_spatial(gemm_n, seed=seed), "bs": 32},
+                   {"name": f"zipf_{zipf_n}_bs128", "A": zipf, "bs": 128}]
+    r, l = run_spgemm(device, gemm_inputs, members, member_keys, seed, timer)
+    results.update(r)
+    launches.update(l)
+    memory_line("spgemm", device)
+
+    add_inputs = [{"name": f"spatial_{spatial_n}_bs32+seed1", "A": spatial,
+                   "B": gen_spatial(spatial_n, seed=seed + 1), "bs": 32},
+                  {"name": f"zipf_{zipf_n}_bs128+seed1", "A": zipf,
+                   "B": gen_zipf(zipf_n, seed=seed + 1), "bs": 128}]
+    add_pairs = [(m, gen_zipf(n, seed=100 + i))
+                 for i, (m, n) in enumerate(zip(members, bucket_ns))]
+    r, l = run_spadd(device, add_inputs, add_pairs, seed, timer)
+    results.update(r)
+    launches.update(l)
+    memory_line("spadd", device)
+
     kernels = []
     for name, recs in results.items():
         head = recs[0]          # gen_spatial: the largest input
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{KERNEL_SOURCE[name]}.cu",
             "replaces": TPU_KERNELS[name],
-            "launches": main_launches[name],
+            "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             "input": head["input"]})
+    check(sorted(k["name"] for k in kernels) == sorted(TPU_KERNELS),
+          "every kernel has a row")
     return {"kernels": kernels}
+
+
+def build_all() -> None:
+    """One nvcc per source, all started together; prints each build's
+    seconds."""
+    from repro_torch.kernels import _build
+
+    def timed(name):
+        t0 = time.monotonic()
+        _build.build(name)
+        return time.monotonic() - t0
+
+    with ThreadPoolExecutor(len(SOURCES)) as ex:
+        futures = {name: ex.submit(timed, name) for name in SOURCES}
+        seconds = {name: f.result() for name, f in futures.items()}
+    for name in SOURCES:
+        _build.load(name)
+    emit({"build_s": seconds})
 
 
 def main() -> int:
@@ -311,13 +725,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
-    from repro_torch.kernels import _build
+    build_all()
     t0 = time.monotonic()
-    _build.load("bsr_spmv")
-    log(f"built bsr_spmv.cu in {time.monotonic() - t0:.1f}s")
     record = run("cuda", spatial_n=524288, zipf_n=8192,
-                 bucket_ns=(8192, 7168, 6144, 5120), seed=0,
+                 bucket_ns=(8192, 7168, 6144, 5120), gemm_n=65536, seed=0,
                  timer=cuda_timer)
+    log(f"all phases {time.monotonic() - t0:.1f}s")
     print(json.dumps(record), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,7 @@ from typing import Dict, Mapping
 import numpy as np
 
 from .core.autotune import Schedule
-from .core.csr import CSR, ELLBSR, SELLBSR
+from .core.csr import BSR, CSR, ELLBSR, SELLBSR
 from .sparse.tensor import LAYOUT_FIELDS, SparseTensor
 
 
@@ -56,6 +56,9 @@ def sparse_tensor_from_arrays(layout: str, meta: Mapping,
                        a["row_perm"], a["slice_widths"], a["blocks"], shape,
                        int(meta["block_size"]), int(meta["slice_height"]),
                        int(meta["sigma"]))
+    elif layout == "bsr":
+        host = BSR(a["block_ptrs"].astype(np.int64), a["block_cols"],
+                   a["blocks"], shape, int(meta["block_size"]))
     else:
         host = a["dense"]
     st = SparseTensor.from_layout(host, schedule=_schedule(meta),

@@ -75,3 +75,13 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _LIBS[name] = ctypes.CDLL(str(build(name)))
         return lib
+
+
+def function(source: str, name: str, argtypes):
+    """The C entry point ``name`` of ``csrc/<source>.cu`` with its argument
+    types set; it returns the launch's ``cudaGetLastError()``."""
+    fn = getattr(load(source), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn

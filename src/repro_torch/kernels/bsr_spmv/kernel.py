@@ -22,6 +22,9 @@ from typing import Dict
 import torch
 
 from .. import _build
+from ..common import check_operands
+from ..common import launch_stream as _stream
+from ..common import raise_on_launch_error as _raise_on
 from . import ref
 
 # Launches per kernel: a plain int each, raised by one per launch.
@@ -63,28 +66,7 @@ def reset_launch_counts() -> None:
 
 
 def _fn(name: str):
-    lib = _build.load("bsr_spmv")
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _check(name: str, tensors: Dict[str, torch.Tensor], ints) -> None:
-    dev = tensors["blocks"].device
-    for key, t in tensors.items():
-        if t.device != dev:
-            raise ValueError(f"{name}: {key} is on {t.device}, "
-                             f"expected {dev}")
-        want = torch.int32 if key in ints else torch.float32
-        if t.dtype != want:
-            raise TypeError(f"{name}: {key} must be {want}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
-    if tensors["blocks"].data_ptr() % 16:
-        # the kernels stage A tiles with 16-byte loads
-        raise ValueError(f"{name}: blocks must be 16-byte aligned")
+    return _build.function("bsr_spmv", name, _ARGTYPES[name])
 
 
 def _blocks_shape(name: str, blocks: torch.Tensor, stacked: bool):
@@ -113,23 +95,15 @@ def _x_shape(name: str, x: torch.Tensor, stacked: bool, multi: bool,
     return int(x.shape[lead]), k
 
 
-def _stream(dev: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-
-def _raise_on(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-
-
 def _ell(name: str, multi: bool, block_indices, block_cols, blocks,
          x_blocks):
     if block_indices.device.type == "cpu":
         f = ref.ref_bsr_spmm if multi else ref.ref_bsr_spmv
         return f(block_indices, block_cols, blocks, x_blocks)
-    _check(name, {"block_indices": block_indices, "block_cols": block_cols,
-                  "blocks": blocks, "x_blocks": x_blocks},
-           ints=("block_indices", "block_cols"))
+    check_operands(name, {"block_indices": block_indices,
+                          "block_cols": block_cols, "blocks": blocks,
+                          "x_blocks": x_blocks},
+                   ints=("block_indices", "block_cols"), aligned=("blocks",))
     stacked = block_indices.dim() == 3
     if block_indices.dim() != (3 if stacked else 2) or \
             block_cols.shape != block_indices.shape:
@@ -161,10 +135,11 @@ def _sell(name: str, multi: bool, cell_block, cell_col, cell_ptr, row_perm,
     if cell_block.device.type == "cpu":
         f = ref.ref_bsr_spmm_sell_perm if multi else ref.ref_bsr_spmv_sell_perm
         return f(cell_block, cell_col, cell_ptr, row_perm, blocks, x_blocks)
-    _check(name, {"cell_block": cell_block, "cell_col": cell_col,
-                  "cell_ptr": cell_ptr, "row_perm": row_perm,
-                  "blocks": blocks, "x_blocks": x_blocks},
-           ints=("cell_block", "cell_col", "cell_ptr", "row_perm"))
+    check_operands(name, {"cell_block": cell_block, "cell_col": cell_col,
+                          "cell_ptr": cell_ptr, "row_perm": row_perm,
+                          "blocks": blocks, "x_blocks": x_blocks},
+                   ints=("cell_block", "cell_col", "cell_ptr", "row_perm"),
+                   aligned=("blocks",))
     stacked = cell_block.dim() == 2
     lead = 1 if stacked else 0
     if cell_block.dim() != lead + 1 or cell_col.shape != cell_block.shape \

@@ -1,11 +1,13 @@
 """Plan/execute sparse-op facade of the port (port of ``repro.sparse`` for
-the spmv/spmm path):
+its four registered ops: spmv, spmm, spgemm and spadd):
 
     from repro_torch.sparse import SparseTensor, plan, plan_bucket
 
     st = SparseTensor.from_csr(csr, schedule=sched)       # on the card
     y  = plan("spmv", (csr,), schedule=sched).execute(x)
     ys = plan_bucket("spmv", csrs, sched).execute(xs)     # ONE launch
+    C  = plan("spgemm", (a, b), schedule=sched).execute() # "bsr" tensor
+    Cs = plan_bucket("spadd", [(a, b), ...], sched).execute()
 
 Every entry point takes ``device=`` ("cuda" by default; "cpu" runs the
 plain PyTorch versions) and raises when the card is asked for and there is

@@ -1,11 +1,16 @@
-"""spmv / spmm registrations of the plan/execute facade (port of the matvec
-part of ``repro.sparse.ops_builtin``).
+"""spmv / spmm / spgemm / spadd registrations of the plan/execute facade
+(port of ``repro.sparse.ops_builtin`` without its sharded, moe_gmm and
+flash_attention parts).
 
 Each planner resolves its operand into a device ``SparseTensor`` once and
 hands back a ``Plan`` whose launch is one call of the layout's kernel: the
 CUDA kernel on ``backend="cuda"``, its plain PyTorch version on
-``backend="torch"``. Layouts are ell, sell and dense; dense stays
-``torch.matmul``, as the JAX package left it to XLA.
+``backend="torch"``. The matvec layouts are ell, sell and dense; dense
+stays ``torch.matmul``, as the JAX package left it to XLA. spgemm and
+spadd take raw blocked (bsr) operand pairs, run the host symbolic phase
+once per plan and return C as a "bsr" ``SparseTensor`` on the plan's
+device (``to_host()`` is the JAX facade's ``BSR``); the schedule's ell/sell
+axis picks spgemm's numeric formulation (padded pairs or flat cells).
 
 Two serving-path hooks ride through every planner, as in the JAX package:
 ``store`` (a ``PreparedStore``: a warm hit returns the finished device
@@ -26,14 +31,21 @@ import numpy as np
 import torch
 
 from ..core.autotune import SELL_SIGMA, Schedule
-from ..core.csr import CSR, SELLBSR
+from ..core.csr import BSR, CSR, SELLBSR
+from ..kernels.bsr_spadd import kernel as AK
+from ..kernels.bsr_spadd import ref as AR
+from ..kernels.bsr_spadd.ops import spadd_symbolic
+from ..kernels.bsr_spgemm import kernel as GK
+from ..kernels.bsr_spgemm import ref as GR
+from ..kernels.bsr_spgemm.ops import (spgemm_cell_ptr, spgemm_symbolic,
+                                      spgemm_symbolic_cells)
 from ..kernels.bsr_spmv import kernel as K
 from ..kernels.bsr_spmv import ref as R
 from ..kernels.bsr_spmv.ops import sell_cell_ptr
 from .plan import Plan
 from .prepared import PreparedStore, bucket_edge, content_key
 from .registry import register_op
-from .tensor import SparseTensor
+from .tensor import SparseMeta, SparseTensor
 
 MATVEC_LAYOUTS = ("ell", "sell", "dense")
 # RHS columns are padded to a multiple of this on both backends: the SpMM
@@ -331,19 +343,21 @@ def _members_key(kind: str, members: List, schedule: Schedule,
                  ) -> Optional[Tuple]:
     """Store key for a bucket of CSR members (None = uncacheable member).
     ``member_keys`` lets a caller that already hashed its matrices skip the
-    second O(nnz) hashing pass; one key per member, in member order."""
+    second O(nnz) hashing pass; one key per member operand (two per
+    spgemm/spadd pair), in member order."""
     keys = []
     ki = iter(member_keys) if member_keys is not None else None
     for m in members:
-        if ki is not None:
-            k = next(ki, None)
-            if k is None:
+        for p in (m if isinstance(m, (tuple, list)) else (m,)):
+            if ki is not None:
+                k = next(ki, None)
+                if k is None:
+                    return None
+                keys.append(k)
+            elif isinstance(p, CSR):
+                keys.append(content_key(p))
+            else:
                 return None
-            keys.append(k)
-        elif isinstance(m, CSR):
-            keys.append(content_key(m))
-        else:
-            return None
     return (kind, schedule) + extra + (tuple(keys),)
 
 
@@ -565,11 +579,453 @@ def _plan_matvec_bucket(members: List, schedule: Schedule, backend: str, *,
 
 
 # ---------------------------------------------------------------------------
+# spgemm / spadd — the executor of their three kernels, host-prep helpers
+# ---------------------------------------------------------------------------
+
+# mode -> (CUDA kernel wrapper, plain PyTorch version, device arguments);
+# both take the arguments with an optional leading member axis.
+_PAIROP_FNS = {
+    "pairs": (GK.bsr_spgemm_pairs_cuda, GR.ref_pair_gemm,
+              ("pair_a", "pair_b", "a_blocks", "b_blocks")),
+    "cells": (GK.bsr_spgemm_cells_cuda, GR.ref_cell_gemm_ptr,
+              ("cell_a", "cell_b", "cell_ptr", "a_blocks", "b_blocks")),
+    "spadd": (AK.bsr_spadd_cuda, AR.ref_block_union_add,
+              ("ia", "ib", "a_blocks", "b_blocks")),
+}
+
+
+def pairop_args(dev: Dict[str, torch.Tensor], mode: str,
+                n_out: Optional[int] = None) -> List[torch.Tensor]:
+    """The mode's kernel arguments from a prepared entry's device leaves.
+    ``n_out`` keeps only the first ``n_out`` output blocks of a single
+    (unstacked) plan: the plan returns the output cut to the real block
+    count, so the bucket-pad blocks past it are not computed at all."""
+    args = [dev[k] for k in _PAIROP_FNS[mode][2]]
+    if n_out is not None:
+        # the leading index arrays are per output block (pairs, spadd), or
+        # the pointer is (cells: n_out + 1 entries)
+        if mode == "cells":
+            args[2] = args[2][: n_out + 1]
+        else:
+            args[0], args[1] = args[0][:n_out], args[1][:n_out]
+    return args
+
+
+def _exec_pairop(dev: Dict[str, torch.Tensor], mode: str, backend: str,
+                 n_out: Optional[int] = None) -> torch.Tensor:
+    """One launch of the mode's kernel (or its plain version)."""
+    cuda_fn, plain_fn, _ = _PAIROP_FNS[mode]
+    fn = cuda_fn if backend == "cuda" else plain_fn
+    return fn(*pairop_args(dev, mode, n_out))
+
+
+def _with_zero_block(blocks: np.ndarray, bs: int) -> np.ndarray:
+    return np.concatenate(
+        [blocks.astype(np.float32), np.zeros((1, bs, bs), np.float32)])
+
+
+def _pad_rows(arr: np.ndarray, n: int, fill) -> np.ndarray:
+    """Pad axis 0 of a host array to ``n`` rows with ``fill``."""
+    if arr.shape[0] >= n:
+        return arr
+    out = np.full((n,) + arr.shape[1:], fill, dtype=arr.dtype)
+    out[: arr.shape[0]] = arr
+    return out
+
+
+def _as_bsr(a, bs: int, op: str) -> BSR:
+    """Coerce a spgemm/spadd operand — CSR, prepared BSR container, or a
+    bsr-layout SparseTensor — to the raw blocked form the symbolic phase
+    consumes, validating the block size against the schedule's."""
+    if isinstance(a, SparseTensor):
+        if a.layout != "bsr":
+            raise ValueError(f"{op} operands must be raw blocked (bsr) "
+                             f"SparseTensors, got layout {a.layout!r}")
+        a = a.to_host()
+    if isinstance(a, BSR):
+        if a.block_size != bs:
+            raise ValueError(f"{op} operand was prepared with block_size "
+                             f"{a.block_size}, schedule wants {bs}")
+        return a
+    return BSR.from_csr(a, bs)
+
+
+def _bsr_pair(a, b, bs: int, op: str) -> Tuple[BSR, BSR]:
+    """Both operands blocked; ``A op A`` blocks its matrix once."""
+    bsr_a = _as_bsr(a, bs, op)
+    return bsr_a, (bsr_a if b is a else _as_bsr(b, bs, op))
+
+
+def _put(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+
+def _result_structure(h: Dict, device: torch.device) -> Dict:
+    """C's host structure and its device copy (what every execute hands
+    back, so it is uploaded once, at plan time)."""
+    return {"c_ptrs": h["c_ptrs"], "c_cols": h["c_cols"], "n_c": h["n_c"],
+            "out_shape": h["out_shape"], "bs": h["bs"],
+            "c_ptrs_dev": _put(h["c_ptrs"].astype(np.int32), device),
+            "c_cols_dev": _put(h["c_cols"], device)}
+
+
+def _bsr_result(st: Dict, blocks: torch.Tensor,
+                schedule: Schedule) -> SparseTensor:
+    """C as the port's "bsr" SparseTensor on the plan's device:
+    ``to_host()`` gives the BSR the JAX facade returns."""
+    meta = SparseMeta("bsr", tuple(st["out_shape"]), st["bs"],
+                      n_block_rows=int(st["c_ptrs"].shape[0]) - 1,
+                      schedule=schedule)
+    return SparseTensor(meta, {"block_ptrs": st["c_ptrs_dev"],
+                               "block_cols": st["c_cols_dev"],
+                               "blocks": blocks})
+
+
+# ---------------------------------------------------------------------------
+# spgemm — padded pairs ("ell") or flattened cells ("sell" layout axis)
+# ---------------------------------------------------------------------------
+
+def _spgemm_host_products(a, b, schedule: Schedule):
+    """Host symbolic products + sentinel-extended block arrays (numpy) —
+    shared by the single-plan prepare and the stacked bucket build."""
+    bs = schedule.block_size
+    bsr_a, bsr_b = _bsr_pair(a, b, bs, "spgemm")
+    zero_a, zero_b = bsr_a.n_blocks, bsr_b.n_blocks
+    a_bl = _with_zero_block(bsr_a.blocks, bs)
+    b_bl = _with_zero_block(bsr_b.blocks, bs)
+    if schedule.layout == "sell":
+        c_ptrs, c_cols, ca, cb, cc = spgemm_symbolic_cells(bsr_a, bsr_b)
+        return {"mode": "cells", "c_ptrs": c_ptrs, "c_cols": c_cols,
+                "cell_a": ca, "cell_b": cb, "cell_c": cc,
+                "a_blocks": a_bl, "b_blocks": b_bl,
+                "zero_a": zero_a, "zero_b": zero_b,
+                "n_c": int(c_cols.size),
+                "out_shape": (a.shape[0], b.shape[1]), "bs": bs}
+    c_ptrs, c_cols, pair_a, pair_b = spgemm_symbolic(bsr_a, bsr_b)
+    return {"mode": "pairs", "c_ptrs": c_ptrs, "c_cols": c_cols,
+            "pair_a": pair_a, "pair_b": pair_b,
+            "a_blocks": a_bl, "b_blocks": b_bl,
+            "zero_a": zero_a, "zero_b": zero_b,
+            "n_c": int(c_cols.size),
+            "out_shape": (a.shape[0], b.shape[1]), "bs": bs}
+
+
+def _prepare_spgemm(a, b, schedule: Schedule,
+                    store: Optional[PreparedStore], shape_bucket: bool,
+                    device: torch.device, operand_key: Optional[str] = None):
+    """Device-staged (and optionally bucket-padded) spgemm symbolic-phase
+    products; cached in the PreparedStore keyed by exact matrix bytes."""
+    key = None
+    if store is not None and isinstance(a, CSR) and isinstance(b, CSR):
+        key = ("spgemm", schedule.block_size, schedule.layout,
+               bool(shape_bucket), operand_key or content_key(a),
+               content_key(b), str(device))
+    return _cached(store, key,
+                   lambda: _build_spgemm(a, b, schedule, shape_bucket,
+                                         device))
+
+
+def _build_spgemm(a, b, schedule: Schedule, shape_bucket: bool,
+                  device: torch.device):
+    h = _spgemm_host_products(a, b, schedule)
+    n_c = h["n_c"]
+    if h["mode"] == "cells":
+        ca, cb, cc = h["cell_a"], h["cell_b"], h["cell_c"]
+        n_live, n_c_pad = ca.size, n_c
+        if shape_bucket:
+            n_cells_p = bucket_edge(ca.size)
+            n_c_pad = bucket_edge(n_c)
+            ca = _pad_rows(ca, n_cells_p, h["zero_a"])
+            cb = _pad_rows(cb, n_cells_p, h["zero_b"])
+            cc = _pad_rows(cc, n_cells_p, max(n_c - 1, 0))
+            h["a_blocks"] = _pad_rows(h["a_blocks"],
+                                      bucket_edge(h["a_blocks"].shape[0]), 0.0)
+            h["b_blocks"] = _pad_rows(h["b_blocks"],
+                                      bucket_edge(h["b_blocks"].shape[0]), 0.0)
+        # the JAX leaves as they are, plus the pointer over the live cells:
+        # the pad cells (cell_c = n_c - 1) belong to no output block
+        dev = {"cell_a": ca, "cell_b": cb, "cell_c": cc,
+               "cell_ptr": spgemm_cell_ptr(cc, n_c_pad, n_live)}
+        n_pairs = n_live
+    else:
+        pa, pb = h["pair_a"], h["pair_b"]
+        n_pairs = int((pa != h["zero_a"]).sum())
+        if shape_bucket and pa.size:
+            n_c_p, mp_p = bucket_edge(pa.shape[0]), bucket_edge(pa.shape[1])
+            pa2 = np.full((n_c_p, mp_p), h["zero_a"], np.int32)
+            pa2[: pa.shape[0], : pa.shape[1]] = pa
+            pb2 = np.full((n_c_p, mp_p), h["zero_b"], np.int32)
+            pb2[: pb.shape[0], : pb.shape[1]] = pb
+            pa, pb = pa2, pb2
+            h["a_blocks"] = _pad_rows(h["a_blocks"],
+                                      bucket_edge(h["a_blocks"].shape[0]), 0.0)
+            h["b_blocks"] = _pad_rows(h["b_blocks"],
+                                      bucket_edge(h["b_blocks"].shape[0]), 0.0)
+        dev = {"pair_a": pa, "pair_b": pb}
+    dev["a_blocks"], dev["b_blocks"] = h["a_blocks"], h["b_blocks"]
+    return {"mode": h["mode"],
+            "dev": {k: _put(v, device) for k, v in dev.items()},
+            "n_pairs": n_pairs, "zero_a": h["zero_a"], "zero_b": h["zero_b"],
+            **_result_structure(h, device)}
+
+
+def _plan_pairop(op: str, prep: Dict, schedule: Schedule,
+                 backend: str, device: torch.device) -> Plan:
+    """The single-pair Plan of spgemm/spadd: execute() -> C as a "bsr"
+    SparseTensor on ``device``. ``operands`` holds the prepared entry (the
+    device leaves under ``"dev"``, C's structure, and ``zero_a``/``zero_b``,
+    the real tile counts of A and B)."""
+    n_c, bs = prep["n_c"], prep["bs"]
+
+    def run():
+        if n_c == 0:
+            blocks = torch.zeros((0, bs, bs), dtype=torch.float32,
+                                 device=device)
+        else:
+            blocks = _exec_pairop(prep["dev"], prep["mode"], backend,
+                                  n_out=n_c)
+        return _bsr_result(prep, blocks, schedule)
+
+    return Plan(op=op, schedule=schedule, backend=backend, _run=run,
+                device=device, operands=(prep,))
+
+
+def _plan_spgemm(operands, schedule: Optional[Schedule], backend: str, *,
+                 device: torch.device, block_size: int = 128,
+                 store: Optional[PreparedStore] = None,
+                 shape_bucket: bool = True,
+                 operand_key: Optional[str] = None, **_) -> Plan:
+    a, b = operands
+    if schedule is None:
+        schedule = Schedule("bsr", block_size, 1.0)
+    if schedule.backend == "dense":
+        raise ValueError("dense schedules have no BSR path; dispatch a "
+                         "dense matmul instead")
+    if a.shape[1] != b.shape[0]:
+        raise ValueError(f"inner dims mismatch {a.shape} @ {b.shape}")
+    prep = _prepare_spgemm(a, b, schedule, store, shape_bucket, device,
+                           operand_key)
+    return _plan_pairop("spgemm", prep, schedule, backend, device)
+
+
+# ---------------------------------------------------------------------------
+# spgemm / spadd — stacked bucket launches
+# ---------------------------------------------------------------------------
+
+def _pair_members(members: List, op: str) -> List[Tuple]:
+    pairs = []
+    for i, m in enumerate(members):
+        if not (isinstance(m, (tuple, list)) and len(m) == 2):
+            raise ValueError(f"{op} bucket members are (A, B) operand "
+                             f"pairs; member {i} is {type(m).__name__}")
+        pairs.append((m[0], m[1]))
+    return pairs
+
+
+def _plan_stacked_pairop(op: str, built: Dict, schedule: Schedule,
+                         backend: str, device: torch.device,
+                         n_members: int) -> Plan:
+    """ONE launch for the whole bucket (the member on the kernel grid);
+    execute() -> one "bsr" SparseTensor per member, each a view of the
+    stacked output cut to the member's block count."""
+
+    def run():
+        cs = _exec_pairop(built["stacked"], built["mode"], backend)
+        return [_bsr_result(st, cs[i, : st["n_c"]], schedule)
+                for i, st in enumerate(built["members"])]
+
+    return Plan(op=op, schedule=schedule, backend=backend, _run=run,
+                device=device, operands=(built,), n_members=n_members)
+
+
+def _plan_spgemm_bucket(members: List, schedule: Schedule, backend: str, *,
+                        device: torch.device,
+                        store: Optional[PreparedStore] = None,
+                        shape_bucket: bool = True,
+                        member_keys=None, **_) -> Plan:
+    """ONE stacked launch for a same-schedule spgemm bucket: per-member
+    symbolic products are padded to common (edge-rounded) shapes, stacked
+    along a member axis, and the numeric phase runs as a single kernel
+    launch; results are sliced back per member."""
+    if schedule.backend == "dense":
+        raise ValueError("dense schedules have no BSR path")
+    pairs = _pair_members(members, "spgemm")
+    for i, (a, b) in enumerate(pairs):
+        if a.shape[1] != b.shape[0]:
+            raise ValueError(f"bucket member {i}: inner dims mismatch "
+                             f"{a.shape} @ {b.shape}")
+    key = None if store is None else _members_key(
+        "spgemm_bucket", members, schedule,
+        extra=(bool(shape_bucket), str(device)), member_keys=member_keys)
+    ed = (0,) if shape_bucket else ()
+
+    def build():
+        hs = [_spgemm_host_products(a, b, schedule) for a, b in pairs]
+        mode = hs[0]["mode"]
+        if mode == "cells":
+            stacked = {
+                "cell_a": _stack_pad([h["cell_a"] for h in hs],
+                                     [h["zero_a"] for h in hs],
+                                     edge_dims=ed),
+                "cell_b": _stack_pad([h["cell_b"] for h in hs],
+                                     [h["zero_b"] for h in hs],
+                                     edge_dims=ed),
+                # pad cells accumulate zero products onto the member's LAST
+                # output block, keeping cell_c nondecreasing
+                "cell_c": _stack_pad([h["cell_c"] for h in hs],
+                                     [max(h["n_c"] - 1, 0) for h in hs],
+                                     edge_dims=ed),
+            }
+            n_c_pad = max(h["n_c"] for h in hs)
+            if shape_bucket:
+                n_c_pad = bucket_edge(n_c_pad)
+            # each member's pointer over its own live cells: its pad cells
+            # and its blocks past its n_c own nothing
+            stacked["cell_ptr"] = np.stack([
+                spgemm_cell_ptr(cc, n_c_pad, h["cell_c"].size)
+                for cc, h in zip(stacked["cell_c"], hs)])
+        else:
+            ed2 = (0, 1) if shape_bucket else ()
+            stacked = {
+                "pair_a": _stack_pad([h["pair_a"] for h in hs],
+                                     [h["zero_a"] for h in hs],
+                                     edge_dims=ed2),
+                "pair_b": _stack_pad([h["pair_b"] for h in hs],
+                                     [h["zero_b"] for h in hs],
+                                     edge_dims=ed2),
+            }
+        stacked["a_blocks"] = _stack_pad([h["a_blocks"] for h in hs], 0.0,
+                                         edge_dims=ed)
+        stacked["b_blocks"] = _stack_pad([h["b_blocks"] for h in hs], 0.0,
+                                         edge_dims=ed)
+        return {"mode": mode,
+                "stacked": {k: _put(v, device) for k, v in stacked.items()},
+                "members": [_result_structure(h, device) for h in hs]}
+
+    built = _cached(store, key, build)
+    return _plan_stacked_pairop("spgemm", built, schedule, backend, device,
+                                len(pairs))
+
+
+# ---------------------------------------------------------------------------
+# spadd
+# ---------------------------------------------------------------------------
+
+def _spadd_host_products(a, b, schedule: Schedule):
+    bs = schedule.block_size
+    bsr_a, bsr_b = _bsr_pair(a, b, bs, "spadd")
+    c_ptrs, c_cols, ia, ib = spadd_symbolic(bsr_a, bsr_b)
+    return {"c_ptrs": c_ptrs, "c_cols": c_cols, "ia": ia, "ib": ib,
+            "a_blocks": _with_zero_block(bsr_a.blocks, bs),
+            "b_blocks": _with_zero_block(bsr_b.blocks, bs),
+            "zero_a": bsr_a.n_blocks, "zero_b": bsr_b.n_blocks,
+            "n_c": int(ia.size), "out_shape": a.shape, "bs": bs}
+
+
+def _prepare_spadd(a, b, schedule: Schedule,
+                   store: Optional[PreparedStore], shape_bucket: bool,
+                   device: torch.device, operand_key: Optional[str] = None):
+    key = None
+    if store is not None and isinstance(a, CSR) and isinstance(b, CSR):
+        # layout is irrelevant to spadd prep (only block_size is consumed),
+        # so the key deliberately omits it: sell- and ell-schedule plans of
+        # the same block size share one cached entry.
+        key = ("spadd", schedule.block_size, bool(shape_bucket),
+               operand_key or content_key(a), content_key(b), str(device))
+    return _cached(store, key,
+                   lambda: _build_spadd(a, b, schedule, shape_bucket,
+                                        device))
+
+
+def _build_spadd(a, b, schedule: Schedule, shape_bucket: bool,
+                 device: torch.device):
+    h = _spadd_host_products(a, b, schedule)
+    ia, ib = h["ia"], h["ib"]
+    if shape_bucket:
+        n_c_p = bucket_edge(h["n_c"])
+        ia = _pad_rows(ia, n_c_p, h["zero_a"])
+        ib = _pad_rows(ib, n_c_p, h["zero_b"])
+        h["a_blocks"] = _pad_rows(h["a_blocks"],
+                                  bucket_edge(h["a_blocks"].shape[0]), 0.0)
+        h["b_blocks"] = _pad_rows(h["b_blocks"],
+                                  bucket_edge(h["b_blocks"].shape[0]), 0.0)
+    dev = {"ia": ia, "ib": ib, "a_blocks": h["a_blocks"],
+           "b_blocks": h["b_blocks"]}
+    return {"mode": "spadd",
+            "dev": {k: _put(v, device) for k, v in dev.items()},
+            "zero_a": h["zero_a"], "zero_b": h["zero_b"],
+            **_result_structure(h, device)}
+
+
+def _plan_spadd(operands, schedule: Optional[Schedule], backend: str, *,
+                device: torch.device, block_size: int = 128,
+                store: Optional[PreparedStore] = None,
+                shape_bucket: bool = True,
+                operand_key: Optional[str] = None, **_) -> Plan:
+    a, b = operands
+    if schedule is None:
+        schedule = Schedule("bsr", block_size, 1.0)
+    if schedule.backend == "dense":
+        raise ValueError("dense schedules have no BSR path; dispatch a "
+                         "dense matmul instead")
+    if a.shape != b.shape:
+        raise ValueError(f"shape mismatch {a.shape} vs {b.shape}")
+    prep = _prepare_spadd(a, b, schedule, store, shape_bucket, device,
+                          operand_key)
+    return _plan_pairop("spadd", prep, schedule, backend, device)
+
+
+def _plan_spadd_bucket(members: List, schedule: Schedule, backend: str, *,
+                       device: torch.device,
+                       store: Optional[PreparedStore] = None,
+                       shape_bucket: bool = True,
+                       member_keys=None, **_) -> Plan:
+    """ONE stacked launch for a same-schedule spadd bucket."""
+    if schedule.backend == "dense":
+        raise ValueError("dense schedules have no BSR path")
+    pairs = _pair_members(members, "spadd")
+    for i, (a, b) in enumerate(pairs):
+        if a.shape != b.shape:
+            raise ValueError(f"bucket member {i}: shape mismatch "
+                             f"{a.shape} vs {b.shape}")
+    key = None if store is None else _members_key(
+        "spadd_bucket", members, schedule,
+        extra=(bool(shape_bucket), str(device)), member_keys=member_keys)
+
+    def build():
+        hs = [_spadd_host_products(a, b, schedule) for a, b in pairs]
+        ed = (0,) if shape_bucket else ()
+        stacked = {
+            "ia": _stack_pad([h["ia"] for h in hs],
+                             [h["zero_a"] for h in hs], edge_dims=ed),
+            "ib": _stack_pad([h["ib"] for h in hs],
+                             [h["zero_b"] for h in hs], edge_dims=ed),
+            "a_blocks": _stack_pad([h["a_blocks"] for h in hs], 0.0,
+                                   edge_dims=ed),
+            "b_blocks": _stack_pad([h["b_blocks"] for h in hs], 0.0,
+                                   edge_dims=ed),
+        }
+        return {"mode": "spadd",
+                "stacked": {k: _put(v, device) for k, v in stacked.items()},
+                "members": [_result_structure(h, device) for h in hs]}
+
+    built = _cached(store, key, build)
+    return _plan_stacked_pairop("spadd", built, schedule, backend, device,
+                                len(pairs))
+
+
+# ---------------------------------------------------------------------------
 # registrations
 # ---------------------------------------------------------------------------
 
 def _matvec_bucket_layouts(s: Schedule) -> Tuple[str, ...]:
     return ("dense",) if s.backend == "dense" else (s.layout,)
+
+
+def _pairop_bucket_layouts(s: Schedule) -> Tuple[str, ...]:
+    # spgemm/spadd operands are raw blocked rows whatever the schedule's
+    # ell/sell axis says (that axis picks the numeric formulation).
+    return ("bsr",)
 
 
 register_op(
@@ -584,3 +1040,18 @@ register_op(
     layouts=MATVEC_LAYOUTS,
     bucket_planner=functools.partial(_plan_matvec_bucket, op="spmm"),
     bucket_layouts=_matvec_bucket_layouts)
+register_op(
+    "spgemm", _plan_spgemm,
+    operand_spec="(A: CSR, B: CSR) -> execute() -> SparseTensor (bsr)",
+    layouts=("ell", "sell"), symbolic=spgemm_symbolic,
+    bucket_planner=_plan_spgemm_bucket,
+    bucket_layouts=_pairop_bucket_layouts)
+# spadd accepts sell-layout schedules (tuner sweeps emit them; the modeled
+# spadd time ignores layout) but executes the block-union path either way —
+# only block_size is consumed, matching the legacy schedule= contract.
+register_op(
+    "spadd", _plan_spadd,
+    operand_spec="(A: CSR, B: CSR) -> execute() -> SparseTensor (bsr)",
+    layouts=("ell", "sell"), symbolic=spadd_symbolic,
+    bucket_planner=_plan_spadd_bucket,
+    bucket_layouts=_pairop_bucket_layouts)

@@ -1,5 +1,5 @@
 """plan/execute: the compile-style front door to the sparse kernels (port of
-``repro.sparse.plan`` for spmv/spmm).
+``repro.sparse.plan`` for spmv, spmm, spgemm and spadd).
 
 ``plan(op, operands, schedule=...)`` runs the op's host-side prep once and
 returns a ``Plan`` — an executable carrying the resolved schedule, the
@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..core.autotune import Schedule
-from ..core.csr import ELLBSR, SELLBSR
+from ..core.csr import BSR, ELLBSR, SELLBSR
 from ..kernels.common import resolve_backend, resolve_device
 from ..obs import default_registry, trace as obs_trace
 from .prepared import PreparedStore
@@ -144,6 +144,8 @@ def _member_layout(m) -> Optional[str]:
         return "ell"
     if isinstance(m, SELLBSR):
         return "sell"
+    if isinstance(m, BSR):
+        return "bsr"
     if isinstance(m, np.ndarray):
         return "dense"
     return None
@@ -155,8 +157,9 @@ def plan_bucket(op: str, operands: Sequence, schedule: Schedule,
                 **op_kwargs) -> Plan:
     """ONE launch for a whole same-schedule bucket.
 
-    ``operands`` is a list of per-member operands (CSR or prepared); the
-    plan's ``execute`` takes the matching list of runtime inputs and
+    ``operands`` is a list of per-member operands (CSR or prepared; an
+    (A, B) pair per member for spgemm/spadd); the plan's ``execute`` takes
+    the matching list of runtime inputs (none for spgemm/spadd) and
     returns the per-member outputs. Every member is validated against the
     bucket's shared Schedule up front, so a mixed bucket fails here with a
     per-member error.
@@ -176,13 +179,14 @@ def plan_bucket(op: str, operands: Sequence, schedule: Schedule,
     if spec.bucket_layouts is not None:
         allowed = tuple(spec.bucket_layouts(schedule))
         for i, m in enumerate(members):
-            got = _member_layout(m)
-            if got is not None and got not in allowed:
-                raise ValueError(
-                    f"bucket member {i} is a {got!r}-layout operand, "
-                    f"incompatible with op {op!r} under the bucket's "
-                    f"schedule (expected one of {allowed} or raw CSR); "
-                    "buckets share one Schedule by construction")
+            for part in (m if isinstance(m, (tuple, list)) else (m,)):
+                got = _member_layout(part)
+                if got is not None and got not in allowed:
+                    raise ValueError(
+                        f"bucket member {i} is a {got!r}-layout operand, "
+                        f"incompatible with op {op!r} under the bucket's "
+                        f"schedule (expected one of {allowed} or raw CSR); "
+                        "buckets share one Schedule by construction")
     dev = resolve_device(device)
     backend = resolve_backend(backend, dev)
     if store is not None and spec.bucket_store_ok:

@@ -6,8 +6,9 @@ planner dispatches on), an optional host-side symbolic phase, and the
 planner that turns (operands, Schedule, backend) into an executable
 ``Plan``. Ops that support the schedule-bucketed stacked launch also
 register a ``bucket_planner`` (one jitted program for a whole same-schedule
-bucket). ``repro_torch.sparse.plan`` is the only consumer. This slice
-registers spmv and spmm; the other ops of ``repro.sparse`` come later.
+bucket). ``repro_torch.sparse.plan`` is the only consumer. The port
+registers spmv, spmm, spgemm and spadd; moe_gmm and flash_attention come
+with a later slice.
 """
 from __future__ import annotations
 

@@ -1,11 +1,13 @@
 """``SparseTensor``: the device container of the facade (port of
 ``repro.sparse.tensor``).
 
-One class wraps every prepared layout the spmv/spmm kernels consume:
+One class wraps every prepared layout the kernels consume:
 
   ell    globally padded ELL-BSR (``core.csr.ELLBSR``)
   sell   sliced SELL-BSR cell schedule (``core.csr.SELLBSR``) plus its row
          pointer ``cell_ptr`` (what the SELL CUDA kernels walk)
+  bsr    raw blocked rows (``core.csr.BSR``): spgemm/spadd operands, whose
+         symbolic phase is host-side, and the C they return
   dense  the dense-schedule escape hatch (density above the tuner's
          threshold)
 
@@ -31,7 +33,7 @@ from ..kernels.bsr_spmv.ops import sell_cell_ptr
 from ..kernels.common import resolve_device
 from .prepared import bucket_edge
 
-HostLayout = Union[ELLBSR, SELLBSR, np.ndarray]
+HostLayout = Union[ELLBSR, SELLBSR, BSR, np.ndarray]
 
 # Device tensor names per layout. The JAX container's leaves, in its
 # flatten order; SELL adds ``cell_ptr`` at the end.
@@ -39,6 +41,7 @@ LAYOUT_FIELDS: Dict[str, Tuple[str, ...]] = {
     "ell": ("block_indices", "block_cols", "blocks", "valid_counts"),
     "sell": ("cell_block", "cell_col", "cell_row", "row_perm",
              "slice_widths", "blocks", "cell_ptr"),
+    "bsr": ("block_ptrs", "block_cols", "blocks"),
     "dense": ("dense",),
 }
 
@@ -109,12 +112,16 @@ class SparseTensor:
     # ------------------------------------------------------- construction
     @staticmethod
     def build_container(csr: CSR, schedule: Schedule, *,
+                        layout: Optional[str] = None,
                         sigma: int = SELL_SIGMA,
                         max_blocks: Optional[int] = None) -> HostLayout:
-        """Host-side container a ``Schedule`` names."""
+        """Host-side container a ``Schedule`` names (``layout="bsr"``: the
+        raw blocked rows, whatever the schedule's ell/sell axis says)."""
         if schedule.backend == "dense":
             return csr.to_dense()
         bsr = BSR.from_csr(csr, schedule.block_size)
+        if layout == "bsr":
+            return bsr
         if schedule.layout == "sell":
             return SELLBSR.from_bsr(bsr, max(schedule.slice_height, 1), sigma)
         mb = max_blocks
@@ -143,14 +150,17 @@ class SparseTensor:
         ``device`` — the card unless ``device="cpu"``; raises when the card
         is asked for and there is none.
 
+        ``layout="bsr"`` forces the raw blocked container regardless of
+        the schedule's ell/sell axis (spgemm/spadd operands).
+
         ``shape_bucket=True`` pads the container's dimensions up to
         ``bucket_edge``s; ``meta.shape`` is then the padded shape and
-        ``true_shape`` the logical one."""
+        ``true_shape`` the logical one. A raw BSR is never padded."""
         dev = resolve_device(device)
         if schedule is None:
             schedule = cls.default_schedule(block_size, layout, slice_height)
-        container = cls.build_container(csr, schedule, sigma=sigma,
-                                        max_blocks=max_blocks)
+        container = cls.build_container(csr, schedule, layout=layout,
+                                        sigma=sigma, max_blocks=max_blocks)
         zero_idx = (int(container.blocks.shape[0]) - 1
                     if isinstance(container, (ELLBSR, SELLBSR)) else None)
         live_cells = (container.n_cells if isinstance(container, SELLBSR)
@@ -168,7 +178,7 @@ class SparseTensor:
                     schedule: Optional[Schedule] = None,
                     device="cuda",
                     live_cells: Optional[int] = None) -> "SparseTensor":
-        """Wrap an existing host container (ELLBSR/SELLBSR/dense).
+        """Wrap an existing host container (ELLBSR/SELLBSR/BSR/dense).
         ``live_cells`` is how many leading SELL cells ``cell_ptr`` assigns
         to rows (default all; a shape-bucketed container passes its
         pre-pad count, see ``sell_cell_ptr``)."""
@@ -215,6 +225,18 @@ class SparseTensor:
                                               live_cells), i32),
             }
             return cls(meta, arrays, host=container)
+        if isinstance(container, BSR):
+            if schedule is None:
+                schedule = Schedule("bsr", container.block_size, 1.0)
+            meta = SparseMeta("bsr", container.shape, container.block_size,
+                              n_block_rows=container.n_block_rows,
+                              schedule=schedule)
+            arrays = {
+                "block_ptrs": put(container.block_ptrs, i32),
+                "block_cols": put(container.block_cols, i32),
+                "blocks": put(container.blocks, f32),
+            }
+            return cls(meta, arrays, host=container)
         dense = np.asarray(container, np.float32)
         if dense.ndim != 2:
             raise TypeError(f"cannot wrap {type(container).__name__} as a "
@@ -252,6 +274,9 @@ class SparseTensor:
             host = SELLBSR(a["cell_block"], a["cell_col"], a["cell_row"],
                            a["row_perm"], a["slice_widths"], a["blocks"],
                            m.shape, m.block_size, m.slice_height, m.sigma)
+        elif m.layout == "bsr":
+            host = BSR(a["block_ptrs"].astype(np.int64), a["block_cols"],
+                       a["blocks"], m.shape, m.block_size)
         else:
             host = a["dense"]
         self._host = host
@@ -316,7 +341,10 @@ def _pad_sell_to_bucket(sell: SELLBSR) -> SELLBSR:
 
 
 def pad_container_to_bucket(container: HostLayout) -> HostLayout:
-    """Bucket-edge padding rule per layout."""
+    """Bucket-edge padding rule per layout (none for a raw BSR, whose
+    executors never take a padded shape)."""
+    if isinstance(container, BSR):
+        return container
     if isinstance(container, ELLBSR):
         return _pad_ell_to_bucket(container)
     if isinstance(container, SELLBSR):

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 PyTorch version on the same inputs, over the block sizes the kernels take
 (8 to 256, powers of two or not), one member and a stacked bucket, and the
-plan path end to end against the float64 oracle.
+plan paths (spmv, spgemm, spadd) end to end against float64 references.
 
 Run on a machine with an NVIDIA GPU and nvcc:
 
@@ -20,8 +20,10 @@ from repro_torch.core import (BSR, CSR, ELLBSR, SELLBSR, Schedule,
 from repro_torch.core.synthetic import gen_zipf
 from repro_torch.kernels.bsr_spmv import kernel as K
 from repro_torch.kernels.bsr_spmv import ops, ref
-from repro_torch.sparse import (launch_count, plan, plan_bucket,
-                                reset_counters)
+from repro_torch.kernels.bsr_spadd import kernel as AK
+from repro_torch.kernels.bsr_spgemm import kernel as GK
+from repro_torch.sparse import (PreparedStore, launch_count, ops_builtin,
+                                plan, plan_bucket, reset_counters)
 
 pytestmark = pytest.mark.cuda
 SIZES = [(64, 8), (100, 16), (257, 32), (96, 96), (512, 128), (600, 256)]
@@ -92,4 +94,76 @@ def test_plan_and_bucket_on_card(card, layout):
     assert launch_count("spmv") == 1 and K.LAUNCHES[name] == before + 1
     for y, m, x in zip(ys, mats, xs):
         np.testing.assert_allclose(y.cpu().numpy(), spmv_oracle(m, x),
+                                   rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------- spgemm / spadd
+
+PAIROP_SIZES = [(64, 8), (100, 16), (257, 32), (288, 96), (512, 128),
+                (600, 256)]
+
+
+def _pairop_entry(card, op, layout, n, bs, stacked):
+    """The device leaves a plan (or a bucket of 3) caches, from its store
+    entry: the kernel's exact inputs at the planner's shapes."""
+    sched = (Schedule("bsr", bs, 1.0, layout="sell") if layout == "sell"
+             else Schedule("bsr", bs, 1.0))
+    pairs = [(CSR.from_dense(_dense(n - 8 * i, 0.06, 10 + i)),
+              CSR.from_dense(_dense(n - 8 * i, 0.06, 20 + i)))
+             for i in range(3 if stacked else 1)]
+    store = PreparedStore(byte_budget=1 << 34)
+    if stacked:
+        plan_bucket(op, pairs, sched, store=store, device=card)
+    else:
+        plan(op, pairs[0], schedule=sched, store=store, device=card)
+    (entry, _), = store._entries.values()
+    return entry["stacked" if stacked else "dev"], entry["mode"]
+
+
+@pytest.mark.parametrize("n,bs", PAIROP_SIZES)
+@pytest.mark.parametrize("mode", ["pairs", "cells", "spadd"])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_pairop_kernel_matches_plain(card, n, bs, mode, stacked):
+    op, layout = (("spadd", "ell") if mode == "spadd" else
+                  ("spgemm", "sell" if mode == "cells" else "ell"))
+    dev, got_mode = _pairop_entry(card, op, layout, n, bs, stacked)
+    assert got_mode == mode
+    cuda_fn, plain_fn, names = ops_builtin._PAIROP_FNS[mode]
+    args = [dev[k] for k in names]
+    c = cuda_fn(*args)
+    torch.cuda.synchronize()
+    want = plain_fn(*args)
+    if mode == "spadd":
+        assert torch.equal(c, want)               # one fp32 add: exact
+    else:
+        torch.testing.assert_close(c, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("op,layout", [("spgemm", "ell"), ("spgemm", "sell"),
+                                       ("spadd", "ell")])
+def test_pairop_plan_and_bucket_on_card(card, op, layout):
+    sched = (Schedule("bsr", 32, 1.0, layout="sell") if layout == "sell"
+             else Schedule("bsr", 32, 1.0))
+    pairs = [(CSR.from_dense(_dense(n, 0.05, n)),
+              CSR.from_dense(_dense(n, 0.05, n + 1))) for n in (200, 160, 96)]
+
+    def reference(a, b):
+        da, db = a.to_dense().astype(np.float64), b.to_dense().astype(
+            np.float64)
+        return da @ db if op == "spgemm" else da + db
+
+    for a, b in pairs:
+        C = plan(op, (a, b), schedule=sched).execute()
+        assert C.layout == "bsr" and C.device.type == "cuda"
+        np.testing.assert_allclose(C.to_host().to_dense(), reference(a, b),
+                                   rtol=1e-4, atol=1e-4)
+    name = ("bsr_spadd" if op == "spadd" else
+            "bsr_spgemm_cells" if layout == "sell" else "bsr_spgemm_pairs")
+    counts = AK.LAUNCHES if op == "spadd" else GK.LAUNCHES
+    before = counts[name]
+    reset_counters()
+    Cs = plan_bucket(op, pairs, sched).execute()
+    assert launch_count(op) == 1 and counts[name] == before + 1
+    for C, (a, b) in zip(Cs, pairs):
+        np.testing.assert_allclose(C.to_host().to_dense(), reference(a, b),
                                    rtol=1e-4, atol=1e-4)
