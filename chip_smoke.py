@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: drives the plan/execute paths of
-spmv/spmm, spgemm and spadd on one NVIDIA GPU at full matrix size and holds
-every kernel against its plain PyTorch version and a float64 CSR oracle.
+spmv/spmm, spgemm and spadd on one NVIDIA GPU at full matrix size, and the
+MoE decode loop, an MoE prefill and prefill attention at mixtral-8x22b
+width, and holds every kernel against its plain PyTorch version (and the
+sparse ones against a float64 CSR oracle).
 
-    python3 chip_smoke.py            # needs one CUDA card; ~3-6 min
+    python3 chip_smoke.py            # needs one CUDA card; ~4-6 min
 
 Phases (any failure exits nonzero; nothing is caught and passed over):
-  1. build the three CUDA sources of ``src/repro_torch/csrc`` (one nvcc per
+  1. build the five CUDA sources of ``src/repro_torch/csrc`` (one nvcc per
      source, all started together, sm_90a) and print each build time and
      the card's name and power limit;
   2. matvec main path: ``plan("spmv"|"spmm")`` over ELL and SELL on
@@ -29,13 +31,30 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      structure against the symbolic phase's, and C @ X on 8 random columns
      against ``A @ (B @ X)`` (spgemm) or ``A @ X + B @ X`` (spadd) from the
      float64 oracle, within ``1e-4 * max|ref|``;
-  5. per kernel x input, at the main path's prepared shapes: the kernel
-     against its plain version over the whole output (spgemm within
-     ``1e-4 * max|C_plain|``, spadd bit for bit), the kernel's median time
-     (CUDA events, after warm-up), the plain version's, one cuSPARSE call
-     computing the same product (``csr @ x``, ``csr @ csr``, ``csr + csr``;
-     a yardstick the port never calls) and the bound on an H100: the larger
-     of bytes / 3.35 TB/s and fp32 operations / 67 TFLOP/s.
+  5. moe main path at mixtral-8x22b width (d_model 6144, d_ff 16384, 8
+     experts; the 3.22 GB of float32 expert weights made on the card from
+     a seeded ``torch.Generator`` and placed there once): 16 ticks of
+     ``decode_moe_ticks`` (batch 4, balanced and hot routing in turn, one
+     ``ScheduleCache`` and one ``PreparedStore``, ``H100_SXM``), then one
+     prefill ``plan("moe_gmm")`` on 4096 tokens routed top-1 with
+     p_e proportional to 1/(e+1), its tile from ``moe_tile_schedule``;
+     every output within ``1e-4 * max|ref|`` of the plain version;
+  6. flash main path: ``plan("flash_attention", (), causal=True)`` on
+     mixtral's prefill attention (48 q heads, 8 kv heads expanded to 48 by
+     the caller, D=128, float32) at B=1, S=4096 and at B=8, S=1024, each
+     within ``1e-4 * max|ref|`` of the plain version; then one small
+     bfloat16 call against the plain version on float32 inputs at the JAX
+     test's 3e-2;
+  7. per kernel x input, at the main path's shapes: the kernel against its
+     plain version over the whole output (spgemm, moe and flash within
+     ``1e-4 * max|plain|``, spadd bit for bit), the kernel's median time
+     (CUDA events, after warm-up), the plain version's, one library call
+     computing the same function (cuSPARSE ``csr @ x``, ``csr @ csr``,
+     ``csr + csr``; ``torch.bmm`` over the gathered expert weights;
+     ``scaled_dot_product_attention``; yardsticks the port never calls)
+     and the bound on an H100: the larger of bytes / 3.35 TB/s and fp32
+     operations / 67 TFLOP/s, operations counted on real tokens (moe) and
+     on the causal half (flash).
 Each main path zeroes its kernels' launch counts just before it and reads
 them just after; every kernel must have launched there. The last lines are
 the ``kernels`` JSON line, the card line and ``{"ok": true, "device": ...}``.
@@ -59,12 +78,14 @@ FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores
 TOL = 1e-4                         # relative to max|ref|
 K_RHS = 8
 CHUNK_BYTES = 256 << 20            # device-side checks work in chunks
-SOURCES = ("bsr_spmv", "bsr_spgemm", "bsr_spadd")
+SOURCES = ("bsr_spmv", "bsr_spgemm", "bsr_spadd", "moe_gmm",
+           "flash_attention")
 KERNEL_SOURCE = {
     "bsr_spmv_ell": "bsr_spmv", "bsr_spmm_ell": "bsr_spmv",
     "bsr_spmv_sell": "bsr_spmv", "bsr_spmm_sell": "bsr_spmv",
     "bsr_spgemm_pairs": "bsr_spgemm", "bsr_spgemm_cells": "bsr_spgemm",
-    "bsr_spadd": "bsr_spadd",
+    "bsr_spadd": "bsr_spadd", "moe_gmm": "moe_gmm",
+    "flash_attention": "flash_attention",
 }
 TPU_KERNELS = {                    # kernel -> the Pallas function it replaces
     "bsr_spmv_ell": "src/repro/kernels/bsr_spmv/kernel.py:78",
@@ -74,7 +95,15 @@ TPU_KERNELS = {                    # kernel -> the Pallas function it replaces
     "bsr_spgemm_pairs": "src/repro/kernels/bsr_spgemm/kernel.py:96",
     "bsr_spgemm_cells": "src/repro/kernels/bsr_spgemm/kernel.py:44",
     "bsr_spadd": "src/repro/kernels/bsr_spadd/kernel.py:32",
+    "moe_gmm": "src/repro/kernels/moe_gmm/kernel.py:41",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:60",
 }
+# mixtral-8x22b (src/repro/configs/mixtral_8x22b.py), at full width
+MOE_DIMS = {"d_model": 6144, "d_ff": 16384, "experts": 8, "batch": 4,
+            "ticks": 16, "prefill": 4096}
+FLASH_DIMS = {"heads": 48, "kv_heads": 8, "d": 128,
+              "inputs": ((1, 4096), (8, 1024))}
+BF16_TOL = 3e-2                    # the JAX bf16 attention test's
 
 
 def log(msg: str) -> None:
@@ -638,6 +667,238 @@ def run_spadd(device: str, add_inputs, add_pairs, seed: int,
     return results, main_launches
 
 
+# ------------------------------------------------- moe_gmm / flash_attention
+
+def max_diff(a, b):
+    """(max|a - b|, max|b|) of two equal-shape tensors."""
+    return float((a - b).abs().max()), float(b.abs().max())
+
+
+def kernel_row(name: str, inp_name: str, cuda_fn, plain_fn, lib_fn, nbytes,
+               flops, timer, extra: dict) -> dict:
+    """One kernel x input row: the kernel against its plain version over
+    the whole output, times, yardstick, bound."""
+    y_k = cuda_fn()
+    y_p = plain_fn()
+    d, m = max_diff(y_k, y_p)
+    check(bool(y_k.isfinite().all()) and d <= TOL * m,
+          f"{name} on {inp_name}: max|kernel - plain| {d:.3e} > "
+          f"{TOL} * {m:.3e}")
+    del y_k, y_p
+    ms = timer(cuda_fn)
+    plain_ms = timer(plain_fn, iters=5, warmup=1)
+    lib_ms = timer(lib_fn, iters=5, warmup=1)
+    b_ms, b_by = bound(nbytes, flops)
+    rec = {"kernel": name, "input": inp_name, "max_abs_err": d,
+           "rel_err_vs_plain": d / max(m, 1e-30), "ms": ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "bytes": nbytes, "flops": flops,
+           "share_of_bound": b_ms / ms, **extra}
+    emit(rec)
+    return rec
+
+
+def moe_row(inp_name: str, x, te, w, tile_m: int, n_real: int, device: str,
+            timer) -> dict:
+    """The grouped-GEMM row at one routed input. Bytes: x, every weight
+    matrix of an expert that owns a tile, out and tile_expert once; FLOP
+    on the real tokens only (2 * T_real * K * N), never on pad rows. The
+    yardstick is one ``torch.bmm`` over the tiles with their expert
+    weights gathered beforehand (outside the timed call)."""
+    import torch
+    from repro_torch.kernels.moe_gmm import kernel as MK
+    from repro_torch.kernels.moe_gmm import ref as MR
+    x = torch.as_tensor(x, device=device)
+    te = torch.as_tensor(te, device=device)
+    m, k = x.shape
+    n = w.shape[2]
+    n_tiles = m // tile_m
+    gathered = w[te.long()]
+    xt = x.view(n_tiles, tile_m, k)
+    experts = len(np.unique(te.cpu().numpy()))
+    nbytes = (m * k + experts * k * n + m * n) * 4 + te.numel() * 4
+    rec = kernel_row(
+        "moe_gmm", inp_name,
+        lambda: MK.moe_gmm_cuda(te, x, w, tile_m=tile_m),
+        lambda: MR.ref_gmm(te, x, w, tile_m=tile_m),
+        lambda: torch.bmm(xt, gathered), nbytes, 2.0 * n_real * k * n, timer,
+        {"tile_m": tile_m, "rows": m, "real_rows": n_real,
+         "padded_row_share": 1.0 - n_real / m})
+    del gathered
+    return rec
+
+
+def run_moe(device: str, dims: dict, seed: int, timer) -> tuple:
+    """The moe main path (the decode loop, then one prefill plan) and the
+    grouped GEMM's rows at the decode and prefill inputs."""
+    import torch
+    from repro_torch.core import H100_SXM
+    from repro_torch.kernels.moe_gmm import kernel as MK
+    from repro_torch.kernels.moe_gmm import ref as MR
+    from repro_torch.selector import ScheduleCache
+    from repro_torch.serving import decode_moe_ticks
+    from repro_torch.sparse import (PreparedStore, launch_count,
+                                    moe_tile_schedule, plan, reset_counters,
+                                    route_and_pad)
+
+    e, d_model, d_ff = dims["experts"], dims["d_model"], dims["d_ff"]
+    n_ticks, n_pre = dims["ticks"], dims["prefill"]
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    w = torch.randn((e, d_model, d_ff), generator=gen, device=device)
+    rng = np.random.default_rng(seed + 3)
+    p_e = 1.0 / np.arange(1, e + 1)
+    eot = rng.choice(e, size=n_pre, p=p_e / p_e.sum())
+    tokens = rng.standard_normal((n_pre, d_model)).astype(np.float32)
+    sync(device)
+    log(f"moe inputs ready: w {tuple(w.shape)} ({w.numel() * 4 / 1e9:.2f} "
+        f"GB) on {w.device}")
+
+    cache, store = ScheduleCache(), PreparedStore()
+    MK.reset_launch_counts()
+    reset_counters()
+    t_main = time.monotonic()
+    dec = decode_moe_ticks(n_ticks, d_model=d_model, d_ff=d_ff, n_experts=e,
+                           batch=dims["batch"], cache=cache, store=store,
+                           seed=seed, platform=H100_SXM, device=device, w=w)
+    decode_s = time.monotonic() - t_main
+    check(launch_count("moe_gmm") == n_ticks
+          and MK.LAUNCHES["moe_gmm"] == n_ticks,
+          f"moe decode: {n_ticks} ticks are {n_ticks} launches (plan "
+          f"{launch_count('moe_gmm')}, kernel {MK.LAUNCHES['moe_gmm']})")
+    sched = moe_tile_schedule(np.bincount(eot, minlength=e), d_model,
+                              H100_SXM, cache=cache)
+    x_pre, te_pre, _ = route_and_pad(tokens, eot, e, tile_m=sched.block_size)
+    pre_plan = plan("moe_gmm", (te_pre,), schedule=sched, store=store,
+                    device=device)
+    out_pre = pre_plan.execute(x_pre, w)
+    main_launches = dict(MK.LAUNCHES)
+    log(f"moe main path {time.monotonic() - t_main:.1f}s, kernel launches "
+        f"{main_launches}")
+    check(main_launches["moe_gmm"] == n_ticks + 1, "moe_gmm launched on "
+          "every tick and the prefill")
+
+    errs = []
+    for (x, te), (tm, _), out in zip(dec["routed"], dec["ticks"],
+                                     dec["outputs"]):
+        ref = MR.ref_gmm(torch.as_tensor(te, device=device),
+                         torch.as_tensor(x, device=device), w, tile_m=tm)
+        d, m = max_diff(out, ref)
+        check(out.shape == ref.shape and bool(out.isfinite().all())
+              and d <= TOL * m, f"moe decode tick: {d:.3e} > {TOL} * {m:.3e}")
+        errs.append(d / max(m, 1e-30))
+    ref = MR.ref_gmm(torch.as_tensor(te_pre, device=device),
+                     torch.as_tensor(x_pre, device=device), w,
+                     tile_m=sched.block_size)
+    d, m = max_diff(out_pre, ref)
+    check(bool(out_pre.isfinite().all()) and d <= TOL * m,
+          f"moe prefill: {d:.3e} > {TOL} * {m:.3e}")
+    del ref, out_pre
+    rows = [tuple(x.shape)[0] for x, _ in dec["routed"]]
+    emit({"phase": "moe_decode", "d_model": d_model, "d_ff": d_ff,
+          "experts": e, "batch": dims["batch"], "ticks": n_ticks,
+          "launches": n_ticks, "tile_m": [tm for tm, _ in dec["ticks"]],
+          "rows": rows, "padded_row_share": 1.0 - n_ticks * dims["batch"]
+          / sum(rows),
+          "cache_hit_rate": dec["cache_hit_rate"],
+          "cache_entries": dec["cache_entries"],
+          "prep_hit_rate": dec["prep_hit_rate"],
+          "prep_entries": dec["prep_entries"],
+          "ms_per_tick": decode_s * 1e3 / n_ticks,
+          "max_rel_err_vs_plain": max(errs)})
+    emit({"phase": "moe_prefill", "tokens": n_pre, "tile_m":
+          sched.block_size, "rows": int(x_pre.shape[0]),
+          "tokens_per_expert": np.bincount(eot, minlength=e).tolist(),
+          "execute_ms": pre_plan.last_measured_s * 1e3,
+          "rel_err_vs_plain": d / max(m, 1e-30)})
+
+    # decode rows: the first tick of each tile size (tick 0 first), then
+    # the prefill
+    first = {}
+    for (x, te), (tm, _) in zip(dec["routed"], dec["ticks"]):
+        first.setdefault(tm, (x, te))
+    del dec
+    recs = [moe_row(f"decode_b{dims['batch']}_tm{tm}", x, te, w, tm,
+                    dims["batch"], device, timer)
+            for tm, (x, te) in first.items()]
+    recs.append(moe_row(f"prefill_{n_pre}_tm{sched.block_size}", x_pre,
+                        te_pre, w, sched.block_size, n_pre, device, timer))
+    del w
+    return {"moe_gmm": recs}, main_launches
+
+
+def gqa_inputs(b: int, s: int, dims: dict, gen, device: str):
+    """(B*H, S, D) float32 q, k, v: k and v made with ``kv_heads`` heads and
+    expanded to ``heads`` by the caller, as the JAX kernel expects."""
+    import torch
+    h, kvh, d = dims["heads"], dims["kv_heads"], dims["d"]
+    q = torch.randn((b, h, s, d), generator=gen, device=device)
+    k, v = (torch.randn((b, kvh, s, d), generator=gen, device=device)
+            .repeat_interleave(h // kvh, dim=1) for _ in range(2))
+    return tuple(t.reshape(b * h, s, d).contiguous() for t in (q, k, v))
+
+
+def run_flash(device: str, dims: dict, seed: int, timer) -> tuple:
+    """The flash main path (causal prefill attention at each input), one
+    small bfloat16 check, and the kernel's rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+    from repro_torch.sparse import launch_count, plan, reset_counters
+
+    gen = torch.Generator(device=device).manual_seed(seed + 4)
+    inputs = [(f"B{b}_S{s}_H{dims['heads']}_D{dims['d']}", b, s,
+               gqa_inputs(b, s, dims, gen, device))
+              for b, s in dims["inputs"]]
+    FK.reset_launch_counts()
+    reset_counters()
+    t_main = time.monotonic()
+    outs = []
+    for name, _, _, qkv in inputs:
+        p = plan("flash_attention", (), causal=True, device=device)
+        outs.append(p.execute(*qkv))
+        emit({"plan": "flash_attention", "input": name,
+              "execute_ms": p.last_measured_s * 1e3})
+    main_launches = dict(FK.LAUNCHES)
+    log(f"flash main path {time.monotonic() - t_main:.1f}s, kernel launches "
+        f"{main_launches}")
+    check(launch_count("flash_attention") == len(inputs)
+          and main_launches["flash_attention"] == len(inputs),
+          "flash_attention launched once per input")
+    for (name, _, _, qkv), out in zip(inputs, outs):
+        d, m = max_diff(out, FR.ref_attention(*qkv, causal=True))
+        check(bool(out.isfinite().all()) and d <= TOL * m,
+              f"flash {name}: {d:.3e} > {TOL} * {m:.3e}")
+    del outs
+
+    small = [torch.randn((2, 128, 64), generator=gen, device=device)
+             for _ in range(3)]
+    half = [t.to(torch.bfloat16) for t in small]
+    o16 = FK.flash_attention_cuda(*half, causal=True, block_q=64, block_k=64)
+    e_ref = float((o16 - FR.ref_attention(*small)).abs().max())
+    d, m = max_diff(o16, FR.ref_attention(*half))
+    check(e_ref <= BF16_TOL and d <= TOL * m,
+          f"flash bf16: {e_ref:.3e} from the float32 plain version "
+          f"(tolerance {BF16_TOL}), {d:.3e} from the plain version on the "
+          "same bf16 inputs")
+    emit({"phase": "flash_bf16", "max_abs_err_vs_f32": e_ref,
+          "max_abs_err_vs_plain": d})
+
+    recs = []
+    for name, b, s, (q, k, v) in inputs:
+        bh, dd = q.shape[0], q.shape[2]
+        q4, k4, v4 = (t.view(b, bh // b, s, dd) for t in (q, k, v))
+        recs.append(kernel_row(
+            "flash_attention", name,
+            lambda: FK.flash_attention_cuda(q, k, v, causal=True),
+            lambda: FR.ref_attention(q, k, v, causal=True),
+            lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                   is_causal=True),
+            4 * bh * s * dd * 4, 4.0 * bh * s * s * dd / 2, timer,
+            {"bh": bh, "s": s, "d": dd}))
+    return {"flash_attention": recs}, main_launches
+
+
 def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, gemm_n: int,
         seed: int, timer) -> dict:
     """All phases on ``device``; returns the ``kernels`` record."""
@@ -678,9 +939,16 @@ def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, gemm_n: int,
     launches.update(l)
     memory_line("spadd", device)
 
+    for phase, fn, dims in (("moe", run_moe, MOE_DIMS),
+                            ("flash", run_flash, FLASH_DIMS)):
+        r, l = fn(device, dims, seed, timer)
+        results.update(r)
+        launches.update(l)
+        memory_line(phase, device)
+
     kernels = []
     for name, recs in results.items():
-        head = recs[0]          # gen_spatial: the largest input
+        head = recs[0]   # gen_spatial, moe decode tick 0, flash B1 S4096
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{KERNEL_SOURCE[name]}.cu",

@@ -1,5 +1,6 @@
 """Plan/execute sparse-op facade of the port (port of ``repro.sparse`` for
-its four registered ops: spmv, spmm, spgemm and spadd):
+its six registered ops: spmv, spmm, spgemm, spadd, moe_gmm and
+flash_attention):
 
     from repro_torch.sparse import SparseTensor, plan, plan_bucket
 
@@ -8,12 +9,17 @@ its four registered ops: spmv, spmm, spgemm and spadd):
     ys = plan_bucket("spmv", csrs, sched).execute(xs)     # ONE launch
     C  = plan("spgemm", (a, b), schedule=sched).execute() # "bsr" tensor
     Cs = plan_bucket("spadd", [(a, b), ...], sched).execute()
+    s  = moe_tile_schedule(counts, d_model, H100_SXM, cache=ScheduleCache())
+    x, tile_e, inv = route_and_pad(tokens, expert_of_token, E, s.block_size)
+    out = plan("moe_gmm", (tile_e,), schedule=s).execute(x, w)
+    o  = plan("flash_attention", (), causal=True).execute(q, k, v)
 
 Every entry point takes ``device=`` ("cuda" by default; "cpu" runs the
 plain PyTorch versions) and raises when the card is asked for and there is
 none.
 """
 from . import ops_builtin  # noqa: F401  (registers the built-in ops)
+from .ops_builtin import moe_tile_schedule, route_and_pad
 from .plan import Plan, launch_count, plan, plan_bucket, reset_counters
 from .prepared import PreparedStore, array_key, bucket_edge, content_key
 from .registry import OpSpec, get_op, list_ops, register_op
@@ -22,6 +28,6 @@ from .tensor import LAYOUT_FIELDS, SparseMeta, SparseTensor
 __all__ = [
     "LAYOUT_FIELDS", "OpSpec", "Plan", "PreparedStore", "SparseMeta",
     "SparseTensor", "array_key", "bucket_edge", "content_key", "get_op",
-    "launch_count", "list_ops", "plan", "plan_bucket", "register_op",
-    "reset_counters",
+    "launch_count", "list_ops", "moe_tile_schedule", "plan", "plan_bucket",
+    "register_op", "reset_counters", "route_and_pad",
 ]

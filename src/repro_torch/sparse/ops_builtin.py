@@ -1,6 +1,6 @@
-"""spmv / spmm / spgemm / spadd registrations of the plan/execute facade
-(port of ``repro.sparse.ops_builtin`` without its sharded, moe_gmm and
-flash_attention parts).
+"""The six built-in ops of the plan/execute facade: spmv, spmm, spgemm,
+spadd, moe_gmm and flash_attention (port of ``repro.sparse.ops_builtin``
+without its sharded parts).
 
 Each planner resolves its operand into a device ``SparseTensor`` once and
 hands back a ``Plan`` whose launch is one call of the layout's kernel: the
@@ -11,6 +11,11 @@ spadd take raw blocked (bsr) operand pairs, run the host symbolic phase
 once per plan and return C as a "bsr" ``SparseTensor`` on the plan's
 device (``to_host()`` is the JAX facade's ``BSR``); the schedule's ell/sell
 axis picks spgemm's numeric formulation (padded pairs or flat cells).
+
+moe_gmm plans the routed tiles' experts (``tile_expert``) and executes on
+``(x, w)``; its decode-time tile comes from ``moe_tile_schedule``, keyed by
+routing fingerprint in a ``ScheduleCache``. flash_attention plans nothing
+and executes on ``(q, k, v)``.
 
 Two serving-path hooks ride through every planner, as in the JAX package:
 ``store`` (a ``PreparedStore``: a warm hit returns the finished device
@@ -30,7 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.autotune import SELL_SIGMA, Schedule
+from ..core.autotune import SELL_SIGMA, Schedule, select_moe_block_size
 from ..core.csr import BSR, CSR, SELLBSR
 from ..kernels.bsr_spadd import kernel as AK
 from ..kernels.bsr_spadd import ref as AR
@@ -42,8 +47,14 @@ from ..kernels.bsr_spgemm.ops import (spgemm_cell_ptr, spgemm_symbolic,
 from ..kernels.bsr_spmv import kernel as K
 from ..kernels.bsr_spmv import ref as R
 from ..kernels.bsr_spmv.ops import sell_cell_ptr
+from ..kernels.flash_attention import kernel as FK
+from ..kernels.flash_attention import ref as FR
+from ..kernels.moe_gmm import kernel as MK
+from ..kernels.moe_gmm import ref as MR
+from ..kernels.moe_gmm.ops import route_and_pad  # noqa: F401  (re-export)
+from ..selector.fingerprint import routing_fingerprint
 from .plan import Plan
-from .prepared import PreparedStore, bucket_edge, content_key
+from .prepared import PreparedStore, array_key, bucket_edge, content_key
 from .registry import register_op
 from .tensor import SparseMeta, SparseTensor
 
@@ -1015,6 +1026,100 @@ def _plan_spadd_bucket(members: List, schedule: Schedule, backend: str, *,
 
 
 # ---------------------------------------------------------------------------
+# moe_gmm
+# ---------------------------------------------------------------------------
+
+def _as_operand(x, device: torch.device) -> torch.Tensor:
+    """A runtime operand on ``device``, float32 or bfloat16 as given (any
+    other float becomes float32). A contiguous tensor already on the
+    device, such as the decode loop's expert weights, is used as it is."""
+    t = torch.as_tensor(x)
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        t = t.to(torch.float32)
+    return t.to(device).contiguous()
+
+
+def _plan_moe(operands, schedule: Optional[Schedule], backend: str, *,
+              device: torch.device, tile_m: Optional[int] = None,
+              tile_n: int = 128, tile_k: int = 128,
+              store: Optional[PreparedStore] = None, **_) -> Plan:
+    (tile_expert,) = operands
+    tm = tile_m if tile_m is not None else (
+        schedule.block_size if schedule is not None else 128)
+    te_host = np.asarray(torch.as_tensor(tile_expert).cpu(), np.int32)
+    key = None if store is None else (
+        "moe_gmm", array_key(te_host), str(device))
+    te = _cached(store, key, lambda: _put(te_host, device))
+
+    def run(x, w):
+        x, w = _as_operand(x, device), _as_operand(w, device)
+        if te_host.size and (te_host.min() < 0
+                             or te_host.max() >= w.shape[0]):
+            raise ValueError(f"moe_gmm: tile experts must lie in [0, "
+                             f"{w.shape[0]}), got {te_host.min()}.."
+                             f"{te_host.max()}")
+        if backend == "cuda":
+            return MK.moe_gmm_cuda(te, x, w, tile_m=tm, tile_n=tile_n,
+                                   tile_k=tile_k)
+        MK.check_tiling(x.shape[0], x.shape[1], w.shape[2], tm, tile_n,
+                        tile_k)
+        return MR.ref_gmm(te, x, w, tile_m=tm)
+
+    return Plan(op="moe_gmm", schedule=schedule, backend=backend, _run=run,
+                device=device, operands=(te,))
+
+
+def moe_tile_schedule(tokens_per_expert, d_model: int, platform,
+                      cache=None) -> Schedule:
+    """Selector-backed MoE tile choice for the serving decode path.
+
+    The routing histogram is fingerprinted (``routing_fingerprint``) and
+    looked up in a ``ScheduleCache`` exactly like a sparse matrix: decode
+    ticks with recurring routing shapes hit the cache instead of re-running
+    the imbalance rule. The returned Schedule's ``block_size`` is the
+    grouped-GEMM ``tile_m`` (Eq. 5 imbalance rule on a miss). Only
+    ``platform.name`` is read, as the key.
+    """
+    fp = None
+    if cache is not None:
+        if not cache.context:
+            cache.context = "moe_gmm"
+        fp = routing_fingerprint(tokens_per_expert, d_model, platform.name)
+        hit = cache.get(fp)
+        if hit is not None:
+            return hit
+    tile = select_moe_block_size(np.asarray(tokens_per_expert, np.float64),
+                                 d_model, platform)
+    sched = Schedule("bsr", tile, 1.0)
+    if cache is not None:
+        cache.put(fp, sched)
+    return sched
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+def _plan_flash(operands, schedule: Optional[Schedule], backend: str, *,
+                device: torch.device, causal: bool = True,
+                block_q: int = 128, block_k: int = 128, **_) -> Plan:
+    if operands not in ((), None):
+        raise ValueError("flash_attention takes no planned operands; pass "
+                         "q, k, v to execute()")
+
+    def run(q, k, v):
+        q, k, v = (_as_operand(t, device) for t in (q, k, v))
+        if backend == "cuda":
+            return FK.flash_attention_cuda(q, k, v, causal=causal,
+                                           block_q=block_q, block_k=block_k)
+        FK.check_shapes(q, k, v, block_q, block_k)
+        return FR.ref_attention(q, k, v, causal=causal)
+
+    return Plan(op="flash_attention", schedule=schedule, backend=backend,
+                _run=run, device=device)
+
+
+# ---------------------------------------------------------------------------
 # registrations
 # ---------------------------------------------------------------------------
 
@@ -1055,3 +1160,12 @@ register_op(
     layouts=("ell", "sell"), symbolic=spadd_symbolic,
     bucket_planner=_plan_spadd_bucket,
     bucket_layouts=_pairop_bucket_layouts)
+register_op(
+    "moe_gmm", _plan_moe,
+    operand_spec="(tile_expert: (M/tile_m,)) -> execute(x: (M, K), "
+                 "w: (E, K, N))",
+    layouts=("ell",))
+register_op(
+    "flash_attention", _plan_flash,
+    operand_spec="() -> execute(q, k, v: (BH, S, D))",
+    layouts=("ell",))

@@ -7,8 +7,8 @@ planner that turns (operands, Schedule, backend) into an executable
 ``Plan``. Ops that support the schedule-bucketed stacked launch also
 register a ``bucket_planner`` (one jitted program for a whole same-schedule
 bucket). ``repro_torch.sparse.plan`` is the only consumer. The port
-registers spmv, spmm, spgemm and spadd; moe_gmm and flash_attention come
-with a later slice.
+registers the JAX package's six ops: spmv, spmm, spgemm, spadd, moe_gmm
+and flash_attention.
 """
 from __future__ import annotations
 

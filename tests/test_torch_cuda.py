@@ -1,7 +1,10 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 PyTorch version on the same inputs, over the block sizes the kernels take
 (8 to 256, powers of two or not), one member and a stacked bucket, and the
-plan paths (spmv, spgemm, spadd) end to end against float64 references.
+plan paths (spmv, spgemm, spadd) end to end against float64 references;
+the grouped GEMM over tile_m 32-256 and the attention kernel over head
+dims 32-256, float32 and bfloat16, with ragged edges, and the MoE decode
+loop and flash plan on the card.
 
 Run on a machine with an NVIDIA GPU and nvcc:
 
@@ -22,6 +25,12 @@ from repro_torch.kernels.bsr_spmv import kernel as K
 from repro_torch.kernels.bsr_spmv import ops, ref
 from repro_torch.kernels.bsr_spadd import kernel as AK
 from repro_torch.kernels.bsr_spgemm import kernel as GK
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.flash_attention import ref as FR
+from repro_torch.kernels.moe_gmm import kernel as MK
+from repro_torch.kernels.moe_gmm import ref as MR
+from repro_torch.kernels.moe_gmm.ops import route_and_pad
+from repro_torch.serving import decode_moe_ticks
 from repro_torch.sparse import (PreparedStore, launch_count, ops_builtin,
                                 plan, plan_bucket, reset_counters)
 
@@ -167,3 +176,133 @@ def test_pairop_plan_and_bucket_on_card(card, op, layout):
     for C, (a, b) in zip(Cs, pairs):
         np.testing.assert_allclose(C.to_host().to_dense(), reference(a, b),
                                    rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------ moe_gmm / flash_attention
+
+def _assert_near(got, want, tol=1e-4):
+    """max|got - want| within ``tol * max|want|`` (fp32 sums taken in
+    another order)."""
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert bool(got.isfinite().all())
+    d, m = float((got - want).abs().max()), float(want.abs().max())
+    assert d <= tol * m, (d, m)
+
+
+@pytest.mark.parametrize("tile_m", [32, 64, 128, 256])
+@pytest.mark.parametrize("k,n,tile_k,tile_n", [(64, 96, 32, 32),
+                                               (72, 200, 8, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_kernel_matches_plain(card, tile_m, k, n, tile_k, tile_n,
+                                  dtype):
+    """N and K edges the CTA tile (128 columns, 32-deep K chunks) does not
+    divide; an empty expert still owns one tile."""
+    rng = np.random.default_rng(tile_m + k)
+    t, e = 300, 4
+    eot = rng.integers(0, e - 1, t)          # expert e-1 gets no tokens
+    x, te, _ = route_and_pad(
+        rng.standard_normal((t, k)).astype(np.float32), eot, e, tile_m)
+    w = rng.standard_normal((e, k, n)).astype(np.float32)
+    xd = torch.as_tensor(x, device=card).to(dtype)
+    wd = torch.as_tensor(w, device=card).to(dtype)
+    ted = torch.as_tensor(te, device=card)
+    before = MK.LAUNCHES["moe_gmm"]
+    out = MK.moe_gmm_cuda(ted, xd, wd, tile_m=tile_m, tile_n=tile_n,
+                          tile_k=tile_k)
+    torch.cuda.synchronize()
+    assert MK.LAUNCHES["moe_gmm"] == before + 1
+    _assert_near(out, MR.ref_gmm(ted, xd, wd, tile_m=tile_m))
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(card, d, causal, dtype):
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.as_tensor(rng.standard_normal((3, 192, d)),
+                               dtype=torch.float32, device=card).to(dtype)
+               for _ in range(3))
+    before = FK.LAUNCHES["flash_attention"]
+    out = FK.flash_attention_cuda(q, k, v, causal=causal, block_q=64,
+                                  block_k=64)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES["flash_attention"] == before + 1
+    _assert_near(out, FR.ref_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("s,d", [(96, 36), (40, 100)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_ragged_edges(card, s, d, causal):
+    """S not a multiple of the kernel's 64-row tile, D not of 64."""
+    rng = np.random.default_rng(s)
+    q, k, v = (torch.as_tensor(rng.standard_normal((2, s, d)),
+                               dtype=torch.float32, device=card)
+               for _ in range(3))
+    out = FK.flash_attention_cuda(q, k, v, causal=causal, block_q=8,
+                                  block_k=8)
+    torch.cuda.synchronize()
+    _assert_near(out, FR.ref_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_batch_heads_past_65535(card, causal):
+    """BH beyond gridDim.y's 65535, as a large prefill batch gives; S spans
+    two q tiles so both grid coordinates vary."""
+    g = torch.Generator(device=card).manual_seed(7)
+    q, k, v = (torch.randn((70001, 80, 8), generator=g, device=card)
+               for _ in range(3))
+    out = FK.flash_attention_cuda(q, k, v, causal=causal, block_q=16,
+                                  block_k=16)
+    torch.cuda.synchronize()
+    _assert_near(out, FR.ref_attention(q, k, v, causal=causal))
+
+
+def test_moe_and_flash_wrappers_raise(card):
+    q = torch.zeros((2, 128, 260), device=card)
+    with pytest.raises(ValueError, match="head dim 260"):
+        FK.flash_attention_cuda(q, q, q)
+    q = torch.zeros((2, 96, 64), device=card)
+    with pytest.raises(ValueError, match="must divide by"):
+        FK.flash_attention_cuda(q, q, q, block_q=64, block_k=64)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        FK.flash_attention_cuda(q, q.cpu(), q, block_q=32, block_k=32)
+    with pytest.raises(TypeError, match="float32 or all"):
+        FK.flash_attention_cuda(q, q.double(), q, block_q=32, block_k=32)
+    te = torch.zeros(2, dtype=torch.int32, device=card)
+    x = torch.zeros((96, 32), device=card)
+    w = torch.zeros((1, 32, 32), device=card)
+    with pytest.raises(ValueError, match="row sub-tile"):
+        MK.moe_gmm_cuda(te, x, w, tile_m=48, tile_n=32, tile_k=32)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        MK.moe_gmm_cuda(te[:1].cpu(), x, w, tile_m=96, tile_n=32, tile_k=32)
+    with pytest.raises(TypeError, match="int32"):
+        MK.moe_gmm_cuda(torch.zeros(3, dtype=torch.int64, device=card), x,
+                        w, tile_m=32, tile_n=32, tile_k=32)
+    # experts 1 and -1 lie outside [0, 1): their tiles read nothing and
+    # come out NaN
+    out = MK.moe_gmm_cuda(torch.tensor([0, 1, -1], dtype=torch.int32,
+                                       device=card), x, w, tile_m=32,
+                          tile_n=32, tile_k=32)
+    torch.cuda.synchronize()
+    assert bool((out[:32] == 0).all()) and bool(out[32:].isnan().all())
+
+
+def test_decode_loop_and_flash_plan_on_card(card):
+    reset_counters()
+    before = MK.LAUNCHES["moe_gmm"]
+    res = decode_moe_ticks(6, d_model=256, d_ff=512, device=card)
+    assert launch_count("moe_gmm") == 6
+    assert MK.LAUNCHES["moe_gmm"] == before + 6
+    rng = np.random.default_rng(0)
+    w = torch.as_tensor(rng.standard_normal((8, 256, 512)),
+                        dtype=torch.float32, device=card)
+    for (x, te), (tm, _), out in zip(res["routed"], res["ticks"],
+                                     res["outputs"]):
+        assert out.device.type == "cuda"
+        _assert_near(out, MR.ref_gmm(torch.as_tensor(te, device=card),
+                                     torch.as_tensor(x, device=card), w,
+                                     tile_m=tm))
+    q, k, v = (torch.randn((4, 256, 64), device=card) for _ in range(3))
+    out = plan("flash_attention", (), causal=True).execute(q, k, v)
+    assert launch_count("flash_attention") == 1
+    _assert_near(out, FR.ref_attention(q, k, v))
