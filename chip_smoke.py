@@ -9,13 +9,16 @@ sparse ones against a float64 CSR oracle).
 
 Phases (any failure exits nonzero; nothing is caught and passed over):
   1. build the five CUDA sources of ``src/repro_torch/csrc`` (one nvcc per
-     source, all started together, sm_90a) and print each build time and
-     the card's name and power limit;
+     source, all started together, sm_90a) and print each build time, the
+     card's name and power limit, and each kernel's registers, stack and
+     local memory (where spills go) and static shared memory as
+     ``cuobjdump -res-usage`` reads them from the built libraries;
   2. matvec main path: ``plan("spmv"|"spmm")`` over ELL and SELL on
      ``gen_spatial(524288)`` (bs=32) and ``gen_zipf(8192)`` (bs=128)
      through a ``PreparedStore``, then ``plan_bucket("spmv")`` over four
-     distinct ``gen_zipf`` members (one launch) and over four requests on
-     one matrix (one multi-RHS launch); each output within
+     distinct ``gen_zipf`` members in each layout (one launch each) and
+     over four requests on one matrix (one multi-RHS launch); each output
+     within
      ``1e-4 * max|y_ref|`` of the float64 oracle (fp32 sums of up to 8,192
      products, taken in another order);
   3. spgemm main path: ``plan("spgemm", (A, A))`` with ``layout="ell"``
@@ -50,18 +53,25 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      ``1e-4 * max|plain|``, spadd bit for bit), the kernel's median time
      (CUDA events, after warm-up), the plain version's, one library call
      computing the same function (cuSPARSE ``csr @ x``, ``csr @ csr``,
-     ``csr + csr``; ``torch.bmm`` over the gathered expert weights;
-     ``scaled_dot_product_attention``; yardsticks the port never calls)
+     ``csr + csr``; on zipf, where cuSPARSE runs out of resources for
+     ``csr @ csr`` and C is dense, ``torch.mm`` of the densified fp32
+     operands with TF32 off; ``torch.bmm`` over the
+     gathered expert weights; ``scaled_dot_product_attention``; yardsticks
+     the port never calls; each row names its call)
      and the bound on an H100: the larger of bytes / 3.35 TB/s and fp32
      operations / 67 TFLOP/s, operations counted on real tokens (moe) and
-     on the causal half (flash).
+     on the causal half (flash). ``bsr_spmv_ell`` is also run with an Inf
+     and then a NaN in ``x_blocks[0]`` and must give NaN in exactly the
+     rows where its plain (all-slot) version does.
 Each main path zeroes its kernels' launch counts just before it and reads
 them just after; every kernel must have launched there. The last lines are
 the ``kernels`` JSON line, the card line and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
+import functools
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -204,15 +214,18 @@ def torch_csr(A, device: str):
 
 def kernel_args(st, multi: bool):
     """(kernel name, CUDA wrapper, plain version, index tensors) of a
-    prepared operand."""
+    prepared operand; the ELL SpMV wrapper comes with its operand's
+    ``valid_counts`` bound."""
     from repro_torch.kernels.bsr_spmv import kernel as K
     from repro_torch.kernels.bsr_spmv import ref as R
     a = st.arrays
     if st.layout == "ell":
         idx = (a["block_indices"], a["block_cols"])
+        spmv = functools.partial(K.bsr_spmv_cuda,
+                                 valid_counts=a["valid_counts"])
         return (("bsr_spmm_ell", K.bsr_spmm_cuda, R.ref_bsr_spmm, idx)
                 if multi else
-                ("bsr_spmv_ell", K.bsr_spmv_cuda, R.ref_bsr_spmv, idx))
+                ("bsr_spmv_ell", spmv, R.ref_bsr_spmv, idx))
     idx = (a["cell_block"], a["cell_col"], a["cell_ptr"], a["row_perm"])
     return (("bsr_spmm_sell", K.bsr_spmm_sell_cuda, R.ref_bsr_spmm_sell_perm,
              idx) if multi else
@@ -251,6 +264,33 @@ def matvec_work(st, multi: bool, k: int):
     kk = k if multi else 1
     nbytes = blocks_bytes + index_bytes + 4 * kk * bs * (n_bc + n_br)
     return nbytes, 2.0 * n_real * bs * bs * kk
+
+
+def check_nonfinite_pattern(cuda_fn, plain_fn, idx, blocks, xb,
+                            inp_name: str) -> None:
+    """With an Inf, then a NaN, in ``x_blocks[0]`` (the column every ELL
+    pad slot reads), the kernel gives NaN in exactly the outputs where its
+    plain all-slot version does, the same infinities, and agrees with it
+    on the finite rest."""
+    for bad in (float("inf"), float("nan")):
+        xbad = xb.clone()
+        xbad[0, 0] = bad
+        y_k, y_p = cuda_fn(*idx, blocks, xbad), plain_fn(*idx, blocks, xbad)
+        same_nan = bool((y_k.isnan() == y_p.isnan()).all())
+        inf = y_p.isinf()
+        same_inf = bool((y_k.isinf() == inf).all()
+                        and (y_k[inf] == y_p[inf]).all())
+        fin = y_p.isfinite()
+        d = float((y_k[fin] - y_p[fin]).abs().max()) if fin.any() else 0.0
+        m = float(y_p[fin].abs().max()) if fin.any() else 0.0
+        emit({"check": "bsr_spmv_ell non-finite x_blocks[0]",
+              "input": inp_name, "x_blocks0": str(bad), "nan_outputs": int(y_p.isnan().sum()),
+              "inf_outputs": int(inf.sum()), "nan_pattern_equal": same_nan,
+              "inf_equal": same_inf, "finite_max_abs_err": d})
+        check(same_nan and same_inf and d <= TOL * max(m, 1e-30),
+              f"bsr_spmv_ell on {inp_name} with {bad} in x_blocks[0]: NaN "
+              f"pattern equal {same_nan}, infinities equal {same_inf}, "
+              f"finite outputs {d:.3e} apart")
 
 
 def run_matvec(device: str, inputs, members, seed: int, timer) -> dict:
@@ -306,19 +346,22 @@ def run_matvec(device: str, inputs, members, seed: int, timer) -> dict:
                   and e_m <= TOL, f"plan spmm {inp['name']} {layout}")
             prepared[(inp["name"], layout)] = pv.operands[0]
     zipf_sell = sched("sell", 128)
-    before = (launch_count("spmv"), K.LAUNCHES["bsr_spmv_sell"])
-    bucket = plan_bucket("spmv", members, zipf_sell, store=store,
-                         device=device, member_keys=member_keys)
-    ys = bucket.execute(mxs)
-    after = (launch_count("spmv"), K.LAUNCHES["bsr_spmv_sell"])
-    log(f"bucket of {len(members)} distinct members: launch_count(spmv) "
-        f"{before[0]} -> {after[0]}, bsr_spmv_sell launches "
-        f"{before[1]} -> {after[1]}")
-    check(after[0] - before[0] == 1 and after[1] - before[1] == 1,
-          "a bucket of distinct members is exactly one launch")
-    for i, (y, ref) in enumerate(zip(ys, m_refs)):
-        e = rel_err(y.cpu().numpy(), ref)
-        check(e <= TOL, f"bucket member {i} rel_err {e:.3e}")
+    for layout in ("ell", "sell"):
+        name = f"bsr_spmv_{layout}"
+        before = (launch_count("spmv"), K.LAUNCHES[name])
+        bucket = plan_bucket("spmv", members, sched(layout, 128),
+                             store=store, device=device,
+                             member_keys=member_keys)
+        ys = bucket.execute(mxs)
+        after = (launch_count("spmv"), K.LAUNCHES[name])
+        log(f"{layout} bucket of {len(members)} distinct members: "
+            f"launch_count(spmv) {before[0]} -> {after[0]}, {name} "
+            f"launches {before[1]} -> {after[1]}")
+        check(after[0] - before[0] == 1 and after[1] - before[1] == 1,
+              f"a {layout} bucket of distinct members is exactly one launch")
+        for i, (y, ref) in enumerate(zip(ys, m_refs)):
+            e = rel_err(y.cpu().numpy(), ref)
+            check(e <= TOL, f"{layout} bucket member {i} rel_err {e:.3e}")
     before = (launch_count("spmv"), K.LAUNCHES["bsr_spmm_sell"])
     pure_plan = plan_bucket("spmv", [pure] * 4, zipf_sell, store=store,
                             device=device, member_keys=[member_keys[0]] * 4)
@@ -369,6 +412,9 @@ def run_matvec(device: str, inputs, members, seed: int, timer) -> dict:
                       f"{name} on {inp['name']}: kernel vs plain {e_kp:.3e},"
                       f" kernel vs oracle {e_ko:.3e}, plain vs oracle "
                       f"{e_po:.3e}")
+                if name == "bsr_spmv_ell":
+                    check_nonfinite_pattern(cuda_fn, plain_fn, idx, blocks,
+                                            xb, inp["name"])
                 ms = timer(lambda: cuda_fn(*idx, blocks, xb))
                 plain_ms = timer(lambda: plain_fn(*idx, blocks, xb),
                                  iters=5, warmup=1)
@@ -469,15 +515,15 @@ def pairop_work(prep, mode: str):
     return nbytes, flops, padded
 
 
-def pairop_row(name: str, mode: str, inp_name: str, prep, lib_fn, timer,
+def pairop_row(name: str, mode: str, inp_name: str, prep, lib, timer,
                device: str) -> dict:
     """One kernel x input row: kernel against plain over all of C, times,
-    yardstick, bound."""
+    bound, and the yardstick ``lib`` ((call name, fn))."""
     import torch
     from repro_torch.sparse import ops_builtin
-    cuda_fn, plain_fn, _ = ops_builtin._PAIROP_FNS[mode]
-    args = ops_builtin.pairop_args(prep["dev"], mode, prep["n_c"])
-    c_k = cuda_fn(*args)
+    cuda_fn, plain_fn, _, _ = ops_builtin._PAIROP_FNS[mode]
+    args, kw = ops_builtin.pairop_args(prep["dev"], mode, prep["n_c"])
+    c_k = cuda_fn(*args, **kw)
     c_p = plain_fn(*args)
     sync(device)
     if mode == "spadd":
@@ -487,15 +533,16 @@ def pairop_row(name: str, mode: str, inp_name: str, prep, lib_fn, timer,
     check(d <= TOL * m, f"{name} on {inp_name}: max|C_kernel - C_plain| "
           f"{d:.3e} > {TOL} * {m:.3e}")
     del c_k, c_p
-    ms = timer(lambda: cuda_fn(*args))
+    ms = timer(lambda: cuda_fn(*args, **kw))
     plain_ms = timer(lambda: plain_fn(*args), iters=3, warmup=1)
-    lib_ms, lib_err, lib_nnz = library_time(lib_fn, timer, device)
+    lib_ms, lib_err, lib_nnz = library_time(lib[1], timer, device)
     nbytes, flops, padded = pairop_work(prep, mode)
     b_ms, b_by = bound(nbytes, flops)
     rec = {"kernel": name, "input": inp_name, "max_abs_err": d,
            "rel_err_vs_plain": d / max(m, 1e-30), "ms": ms,
            "plain_ms": plain_ms, "library_ms": lib_ms,
-           "library_error": lib_err, "library_nnz": lib_nnz,
+           "library_call": lib[0], "library_error": lib_err,
+           "library_nnz": lib_nnz,
            "bound_ms": b_ms, "bound_by": b_by,
            "bytes": nbytes, "flops": flops, "share_of_bound": b_ms / ms,
            "n_c": prep["n_c"], "real_pairs": prep.get("n_pairs"),
@@ -586,14 +633,23 @@ def run_spgemm(device: str, gemm_inputs, members, member_keys, seed: int,
 
     results = {}
     for inp in gemm_inputs:
-        csr = torch_csr(inp["A"], device)
+        if inp["library"] == "dense":
+            # C is dense and cuSPARSE csr @ csr runs out of resources here:
+            # full fp32 (TF32 is off, see main)
+            op = torch.as_tensor(inp["A"].to_dense(), dtype=torch.float32,
+                                 device=device)
+            lib = ("torch.mm of the dense fp32 operands",
+                   lambda: torch.mm(op, op))
+        else:
+            op = torch_csr(inp["A"], device)
+            lib = ("cuSPARSE csr @ csr", lambda: op @ op)
         for layout in ("ell", "sell"):
             mode = "cells" if layout == "sell" else "pairs"
             name = f"bsr_spgemm_{mode}"
             results.setdefault(name, []).append(pairop_row(
                 name, mode, inp["name"], preps[(inp["name"], layout)],
-                lambda: csr @ csr, timer, device))
-        del csr
+                lib, timer, device))
+        del op, lib
     del preps, store
     return results, main_launches
 
@@ -661,7 +717,7 @@ def run_spadd(device: str, add_inputs, add_pairs, seed: int,
         ca, cb = torch_csr(inp["A"], device), torch_csr(inp["B"], device)
         results["bsr_spadd"].append(pairop_row(
             "bsr_spadd", "spadd", inp["name"], preps[inp["name"]],
-            lambda: ca + cb, timer, device))
+            ("cuSPARSE csr + csr", lambda: ca + cb), timer, device))
         del ca, cb
     del preps, store
     return results, main_launches
@@ -920,9 +976,12 @@ def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, gemm_n: int,
         members, seed, timer)
     memory_line("matvec", device)
 
+    # each with the library call that computes A @ A on it
     gemm_inputs = [{"name": f"spatial_{gemm_n}_bs32",
-                    "A": gen_spatial(gemm_n, seed=seed), "bs": 32},
-                   {"name": f"zipf_{zipf_n}_bs128", "A": zipf, "bs": 128}]
+                    "A": gen_spatial(gemm_n, seed=seed), "bs": 32,
+                    "library": "csr"},
+                   {"name": f"zipf_{zipf_n}_bs128", "A": zipf, "bs": 128,
+                    "library": "dense"}]
     r, l = run_spgemm(device, gemm_inputs, members, member_keys, seed, timer)
     results.update(r)
     launches.update(l)
@@ -980,6 +1039,31 @@ def build_all() -> None:
     for name in SOURCES:
         _build.load(name)
     emit({"build_s": seconds})
+    emit({"resource_usage": {name: resource_usage(_build.library_path(name))
+                             for name in SOURCES}})
+
+
+def resource_usage(lib: Path):
+    """{kernel symbol: {"REG": n, "STACK": n, "SHARED": n, "LOCAL": n}} of
+    a built library, as ``cuobjdump -res-usage`` reads it (a STACK or LOCAL
+    above 0 holds spilled registers); None where the toolkit has no
+    cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    out = subprocess.run([tool, "-res-usage", str(lib)], capture_output=True,
+                         text=True, timeout=120).stdout
+    usage, fn = {}, None
+    for line in out.splitlines():
+        line = line.strip()
+        if line.startswith("Function "):
+            fn = line[len("Function "):].rstrip(":")
+        elif fn and line.startswith("REG:"):
+            usage[fn] = {k: int(v) for k, v in
+                         (f.split(":") for f in line.split()
+                          if f.split(":")[-1].isdigit())}
+            fn = None
+    return usage
 
 
 def main() -> int:

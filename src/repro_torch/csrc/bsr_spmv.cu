@@ -20,23 +20,40 @@
 //   ~20 FLOP/byte fp32 ridge (67 TFLOP/s over 3.35 TB/s). The least time is
 //   (blocks.nbytes + indices + x + y) / 3.35 TB/s.
 //
-// What the design does about it
-//   The TPU grid runs its slot axis in order and keeps the output tile
-//   resident between steps; GPU blocks run in parallel in no order, so one
-//   CTA owns one (block-row, RHS tile, member) and loops over that row's
-//   slots (ELL) or cells (SELL) itself, keeping its rows x KT fp32 sums in
-//   registers. No atomics, no second pass: the result is deterministic.
-//   When there are too few block-rows to fill the card (gen_zipf at
-//   bs = 128 has 64), the wrapper splits each tile's rows over up to 8
-//   CTAs (rows_per_cta >= 16): A is still read once, only x is re-read.
-//   A tiles are streamed through shared memory in 32-column chunks with
-//   16-byte coalesced loads, so bs = 256 (a 256 KB tile, above the 227 KB a
-//   block may use) needs only 34 KB; the x segment is staged beside it.
-//   Small per-CTA shared memory keeps up to 8 CTAs per SM in flight, which
-//   is what hides the load latency. Sums use CUDA-core fp32 FMAs (no TF32),
-//   matching the reference's fp32 accumulation. When one output needs fewer
-//   than 256 threads (SpMV, small bs) the column sum is split over G lanes
-//   and reduced with warp shuffles once, after the last slot.
+// What the ELL SpMV design does about it (bsr_spmv_ell)
+//   One CTA owns one (block-row, strip of tile rows, member). The row's
+//   real slots lead it and valid_counts[b, r] says how many; the slots
+//   after them hold the all-zeros block and column 0 (the ELL container's
+//   pad). The TPU kernel multiplies every slot, so a pad slot adds
+//   0 * x_blocks[0]: +0 for a finite x, NaN where x_blocks[0] holds an Inf
+//   or a NaN. The kernel sums the real slots and then exactly one pad
+//   slot, slot valid_counts[r] as it stands, when the row has one: every
+//   pad slot of a row is the same product, so this is the all-slot sum
+//   (up to the sign of an exact zero) while the dead tiles are never read.
+//   The row's slot indices are staged in shared memory in batches of 256
+//   before its slot loop, so no tile address waits on an index load. The
+//   strips (contiguous in the tile, at most kEllStrip floats) and their x
+//   segments stream through a kEllStages-deep ring of shared memory filled
+//   by 16-byte cp.async copies, one barrier per slot: three strips are in
+//   flight while one is summed. g lanes (a power of two up to 32) share
+//   each output row and are reduced with warp shuffles once, after the
+//   last slot.
+//
+// What the other three designs do
+//   One CTA per (block-row, RHS tile, member) loops over the row's slots
+//   (ELL) or cells (SELL), keeping its rows x KT fp32 sums in registers. No
+//   atomics, no second pass: every result is deterministic. When there are
+//   too few block-rows to fill the card (gen_zipf at bs = 128 has 64), the
+//   wrapper splits each tile's rows over up to 8 CTAs (rows_per_cta >= 16):
+//   A is still read once, only x is re-read. A tiles are streamed through
+//   shared memory in 32-column chunks with 16-byte coalesced loads, so
+//   bs = 256 (a 256 KB tile, above the 227 KB a block may use) needs only
+//   34 KB; the x segment is staged beside it. Small per-CTA shared memory
+//   keeps up to 8 CTAs per SM in flight, which is what hides the load
+//   latency. Sums use CUDA-core fp32 FMAs (no TF32), matching the
+//   reference's fp32 accumulation. When one output needs fewer than 256
+//   threads (SpMV, small bs) the column sum is split over G lanes and
+//   reduced with warp shuffles once, after the last slot.
 //   SELL rows are located through a row pointer (cell_ptr, derived on the
 //   host from the nondecreasing cell_row), and each CTA writes its result
 //   straight to y[row_perm[r]]: the scatter the JAX path does afterwards is
@@ -171,18 +188,162 @@ int launch(const int* slot_block, const int* slot_col, const int* cell_ptr,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ ELL SpMV
+
+constexpr int kEllStages = 4;     // ring depth
+constexpr int kEllStrip = 2048;   // floats of one stage's A strip, at most
+constexpr int kEllRows = 4;       // output rows per thread, at most
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// CTA (r, strip, b) computes y[b, r, i0 : i0 + rb], i0 = strip * rows.
+// Shared memory: kEllStages stages of [rows x bs strip | bs x segment],
+// then one batch of kThreads slot indices (block, column).
+__global__ void __launch_bounds__(kThreads)
+bsr_spmv_ell_kernel(const int* __restrict__ idx,         // (B, n_br, mb)
+                    const int* __restrict__ cols,        // (B, n_br, mb)
+                    const int* __restrict__ valid,       // (B, n_br)
+                    const float* __restrict__ blocks,    // (B, nb, bs, bs)
+                    const float* __restrict__ x,         // (B, n_bc, bs)
+                    float* __restrict__ y,               // (B, n_br, bs)
+                    int n_br, int mb, long long nb, int bs, int n_bc,
+                    int rows, int g) {
+  extern __shared__ __align__(16) float smem[];
+  const int stage = rows * bs + bs;
+  int* s_blk = reinterpret_cast<int*>(smem + kEllStages * stage);
+  int* s_col = s_blk + kThreads;
+  const int t = threadIdx.x;
+  const int i0 = blockIdx.y * rows;
+  const int rb = min(rows, bs - i0);
+  const long long b = blockIdx.z;
+  const long long row = b * n_br + blockIdx.x;
+  const int n_real = min(max(valid[row], 0), mb);
+  const int n = n_real < mb ? n_real + 1 : mb;   // + one pad slot, if any
+  const int q = bs / 4;                          // 16-byte vectors per row
+  const int n_vec = rb * q;
+  const long long tile = (long long)bs * bs;
+  const float* a_b = blocks + b * nb * tile + (long long)i0 * bs;
+  const float* x_b = x + b * n_bc * (long long)bs;
+  const int lane_s = t % g, o_base = t / g, workers = kThreads / g;
+
+  float acc[kEllRows];
+#pragma unroll
+  for (int u = 0; u < kEllRows; ++u) acc[u] = 0.f;
+
+  for (int s0 = 0; s0 < n; s0 += kThreads) {
+    const int nn = min(kThreads, n - s0);
+    __syncthreads();   // the last batch is summed and its indices unread
+    if (t < nn) {
+      s_blk[t] = idx[row * mb + s0 + t];
+      s_col[t] = cols[row * mb + s0 + t];
+    }
+    __syncthreads();
+    auto produce = [&](int j) {   // slot s0 + j into stage j % kEllStages
+      if (j < nn) {
+        float* as = smem + (j % kEllStages) * stage;
+        const float* ag = a_b + s_blk[j] * tile;
+        for (int e = t; e < n_vec; e += kThreads)
+          cp_async16(as + 4 * e, ag + 4 * e);
+        if (t < q)
+          cp_async16(as + rows * bs + 4 * t,
+                     x_b + (long long)s_col[j] * bs + 4 * t);
+      }
+      cp_async_commit();   // one group per call, empty or not
+    };
+#pragma unroll
+    for (int j = 0; j < kEllStages - 1; ++j) produce(j);
+    for (int j = 0; j < nn; ++j) {
+      cp_async_wait<kEllStages - 2>();
+      __syncthreads();   // slot j landed; every thread is done with j - 1
+      produce(j + kEllStages - 1);
+      const float* as = smem + (j % kEllStages) * stage;
+      const float* xs = as + rows * bs;
+#pragma unroll
+      for (int u = 0; u < kEllRows; ++u) {
+        const int o = o_base + u * workers;
+        if (o < rb) {
+          const float* ar = as + o * bs;
+          float sum = acc[u];
+          for (int c4 = lane_s; c4 < q; c4 += g) {
+            const float4 av = *reinterpret_cast<const float4*>(ar + 4 * c4);
+            const float4 xv = *reinterpret_cast<const float4*>(xs + 4 * c4);
+            sum = fmaf(av.x, xv.x, sum);
+            sum = fmaf(av.y, xv.y, sum);
+            sum = fmaf(av.z, xv.z, sum);
+            sum = fmaf(av.w, xv.w, sum);
+          }
+          acc[u] = sum;
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* y_r = y + row * bs + i0;
+#pragma unroll
+  for (int u = 0; u < kEllRows; ++u) {
+    float v = acc[u];
+    for (int off = g / 2; off > 0; off /= 2)
+      v += __shfl_down_sync(0xffffffffu, v, off, g);
+    const int o = o_base + u * workers;
+    if (lane_s == 0 && o < rb) y_r[o] = v;
+  }
+}
+
+int launch_spmv_ell(const int* idx, const int* cols, const int* valid,
+                    const float* blocks, const float* x, float* y,
+                    int n_members, int n_br, int mb, long long nb, int bs,
+                    int n_bc, int rows_per_cta, cudaStream_t stream) {
+  if (bs <= 0 || bs > 256 || bs % 4 != 0 || n_br <= 0 || mb < 0 ||
+      n_members <= 0 || n_members > 65535 || rows_per_cta <= 0 ||
+      rows_per_cta > bs || valid == nullptr)
+    return (int)cudaErrorInvalidValue;
+  // g: the power of two up to 32 that a row's bs / 4 vectors fill; a
+  // strip holds at most kEllStrip floats and kEllRows rows per thread
+  int g = 1;
+  while (g < 32 && 2 * g <= bs / 4) g *= 2;
+  int rows = min(rows_per_cta, max(1, kEllStrip / bs));
+  rows = min(rows, kEllRows * (kThreads / g));
+  const int n_split = (bs + rows - 1) / rows;
+  const dim3 grid(n_br, n_split, n_members);
+  const int shmem = (int)(sizeof(float) * kEllStages * (rows * bs + bs) +
+                          sizeof(int) * 2 * kThreads);
+  const cudaError_t err = cudaFuncSetAttribute(
+      bsr_spmv_ell_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      shmem);
+  if (err != cudaSuccess) return (int)err;
+  bsr_spmv_ell_kernel<<<grid, kThreads, shmem, stream>>>(
+      idx, cols, valid, blocks, x, y, n_br, mb, nb, bs, n_bc, rows, g);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each returns cudaGetLastError() after the launch (0 = launched).
-int bsr_spmv_ell(const int* idx, const int* cols, const float* blocks,
-                 const float* x, float* y, int n_members, int n_br, int mb,
-                 long long nb, int bs, int n_bc, int rows_per_cta,
-                 cudaStream_t stream) {
-  return launch<false, 1>(idx, cols, nullptr, nullptr, blocks, x, y,
-                          n_members, n_br, mb, nb, bs, n_bc, 1, rows_per_cta,
-                          stream);
+// valid_counts (n_members, n_br): the real slots that lead each ELL row
+// (the container's valid_counts).
+int bsr_spmv_ell(const int* idx, const int* cols, const int* valid_counts,
+                 const float* blocks, const float* x, float* y,
+                 int n_members, int n_br, int mb, long long nb, int bs,
+                 int n_bc, int rows_per_cta, cudaStream_t stream) {
+  return launch_spmv_ell(idx, cols, valid_counts, blocks, x, y, n_members,
+                         n_br, mb, nb, bs, n_bc, rows_per_cta, stream);
 }
 
 int bsr_spmm_ell(const int* idx, const int* cols, const float* blocks,

@@ -2,7 +2,10 @@
 port of ``repro.kernels.bsr_spgemm.kernel``.
 
   pairs  C[k] = sum_p a_blocks[pair_a[k, p]] @ b_blocks[pair_b[k, p]]
-         (pair lists padded to max_pairs with the zero-sentinel blocks)
+         (pair lists padded to max_pairs with the zero-sentinel blocks;
+         ``pair_counts``, a required keyword, says how many real pairs
+         lead each row, and the kernel multiplies those only: a sentinel
+         product is exactly 0)
   cells  C[c] = sum over the cells cell_ptr[c]:cell_ptr[c+1] of
          a_blocks[cell_a[t]] @ b_blocks[cell_b[t]]
 
@@ -31,8 +34,8 @@ from . import ref
 LAUNCHES: Dict[str, int] = {"bsr_spgemm_pairs": 0, "bsr_spgemm_cells": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# list_a, list_b, cell_ptr, a_blocks, b_blocks, c, n_members, n_c, n_list,
-# n_a, n_b, bs, stream
+# list_a, list_b, pair_counts | cell_ptr, a_blocks, b_blocks, c, n_members,
+# n_c, n_list, n_a, n_b, bs, stream
 _ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _L, _L, _L, _L, _I, _P]
 
 
@@ -62,7 +65,7 @@ def _blocks(name: str, a_blocks: torch.Tensor, b_blocks: torch.Tensor,
     return bs
 
 
-def _launch(name: str, list_a, list_b, cell_ptr, a_blocks, b_blocks,
+def _launch(name: str, list_a, list_b, count_or_ptr, a_blocks, b_blocks,
             n_mem: int, n_c: int, n_list: int, bs: int,
             out_lead) -> torch.Tensor:
     c = torch.empty(tuple(out_lead) + (n_c, bs, bs), dtype=torch.float32,
@@ -71,8 +74,7 @@ def _launch(name: str, list_a, list_b, cell_ptr, a_blocks, b_blocks,
         return c
     LAUNCHES[name] += 1
     raise_on_launch_error(name, _fn(name)(
-        list_a.data_ptr(), list_b.data_ptr(),
-        0 if cell_ptr is None else cell_ptr.data_ptr(),
+        list_a.data_ptr(), list_b.data_ptr(), count_or_ptr.data_ptr(),
         a_blocks.data_ptr(), b_blocks.data_ptr(), c.data_ptr(), n_mem, n_c,
         n_list, int(a_blocks.shape[-3]), int(b_blocks.shape[-3]), bs,
         launch_stream(a_blocks.device)))
@@ -80,17 +82,24 @@ def _launch(name: str, list_a, list_b, cell_ptr, a_blocks, b_blocks,
 
 
 def bsr_spgemm_pairs_cuda(pair_a: torch.Tensor, pair_b: torch.Tensor,
-                          a_blocks: torch.Tensor,
-                          b_blocks: torch.Tensor) -> torch.Tensor:
+                          a_blocks: torch.Tensor, b_blocks: torch.Tensor, *,
+                          pair_counts: torch.Tensor) -> torch.Tensor:
     """(n_c, max_pairs) int32 pairs into (n_a+1, bs, bs) / (n_b+1, bs, bs)
-    float32 blocks -> (n_c, bs, bs), each with an optional leading member
+    float32 blocks, and (n_c,) int32 ``pair_counts`` (the real pairs that
+    lead each row) -> (n_c, bs, bs), each with an optional leading member
     axis. Replaces ``bsr_spgemm_pallas``."""
     name = "bsr_spgemm_pairs"
+    if (pair_counts.shape != pair_a.shape[:-1]
+            or pair_counts.dtype != torch.int32):
+        raise ValueError(f"{name}: pair_counts must be int32 of shape "
+                         f"{tuple(pair_a.shape[:-1])}, got "
+                         f"{pair_counts.dtype} {tuple(pair_counts.shape)}")
     if pair_a.device.type == "cpu":
         return ref.ref_pair_gemm(pair_a, pair_b, a_blocks, b_blocks)
     check_operands(name, {"pair_a": pair_a, "pair_b": pair_b,
-                          "a_blocks": a_blocks, "b_blocks": b_blocks},
-                   ints=("pair_a", "pair_b"),
+                          "pair_counts": pair_counts, "a_blocks": a_blocks,
+                          "b_blocks": b_blocks},
+                   ints=("pair_a", "pair_b", "pair_counts"),
                    aligned=("a_blocks", "b_blocks"))
     stacked = pair_a.dim() == 3
     if pair_a.dim() not in (2, 3) or pair_b.shape != pair_a.shape:
@@ -101,8 +110,8 @@ def bsr_spgemm_pairs_cuda(pair_a: torch.Tensor, pair_b: torch.Tensor,
     if stacked and (a_blocks.shape[0] != n_mem or b_blocks.shape[0] != n_mem):
         raise ValueError(f"{name}: member axes disagree")
     n_c, mp = (int(s) for s in pair_a.shape[-2:])
-    return _launch(name, pair_a, pair_b, None, a_blocks, b_blocks, n_mem,
-                   n_c, mp, bs, pair_a.shape[:-2])
+    return _launch(name, pair_a, pair_b, pair_counts, a_blocks, b_blocks,
+                   n_mem, n_c, mp, bs, pair_a.shape[:-2])
 
 
 def bsr_spgemm_cells_cuda(cell_a: torch.Tensor, cell_b: torch.Tensor,

@@ -10,6 +10,12 @@ to its launch count and raises if the launch failed. It never falls back:
 on CPU tensors, and only there, it computes the plain PyTorch version
 (``ref.py``), and counts nothing.
 
+The ELL SpMV kernel also takes ``valid_counts`` (the container's count of
+real slots leading each row, (n_br,) or (B, n_br) int32), a required
+keyword: it sums those slots and one pad slot per row that has one, which
+is the all-slot sum the plain version and the TPU kernel compute. On CPU
+tensors it is checked and the plain version sums every slot.
+
 The SELL kernels take ``cell_ptr`` (the (n_br+1,) row pointer of the
 nondecreasing ``cell_row``) and ``row_perm`` and return rows in ORIGINAL
 order: the scatter through ``row_perm`` is fused into the kernel.
@@ -33,7 +39,8 @@ LAUNCHES: Dict[str, int] = {"bsr_spmv_ell": 0, "bsr_spmm_ell": 0,
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
-    "bsr_spmv_ell": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _P],
+    "bsr_spmv_ell": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I,
+                     _P],
     "bsr_spmm_ell": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _I,
                      _P],
     "bsr_spmv_sell": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _I, _I,
@@ -96,14 +103,24 @@ def _x_shape(name: str, x: torch.Tensor, stacked: bool, multi: bool,
 
 
 def _ell(name: str, multi: bool, block_indices, block_cols, blocks,
-         x_blocks):
+         x_blocks, valid_counts=None):
+    counted = not multi      # the SpMV kernel stops at valid_counts
+    if counted and (valid_counts.shape != block_indices.shape[:-1]
+                    or valid_counts.dtype != torch.int32):
+        raise ValueError(f"{name}: valid_counts must be int32 of shape "
+                         f"{tuple(block_indices.shape[:-1])}, got "
+                         f"{valid_counts.dtype} {tuple(valid_counts.shape)}")
     if block_indices.device.type == "cpu":
         f = ref.ref_bsr_spmm if multi else ref.ref_bsr_spmv
         return f(block_indices, block_cols, blocks, x_blocks)
-    check_operands(name, {"block_indices": block_indices,
-                          "block_cols": block_cols, "blocks": blocks,
-                          "x_blocks": x_blocks},
-                   ints=("block_indices", "block_cols"), aligned=("blocks",))
+    operands = {"block_indices": block_indices, "block_cols": block_cols,
+                "blocks": blocks, "x_blocks": x_blocks}
+    if counted:
+        operands["valid_counts"] = valid_counts
+    # the counted kernel also copies x segments 16 bytes at a time
+    check_operands(name, operands,
+                   ints=("block_indices", "block_cols", "valid_counts"),
+                   aligned=("blocks", "x_blocks") if counted else ("blocks",))
     stacked = block_indices.dim() == 3
     if block_indices.dim() != (3 if stacked else 2) or \
             block_cols.shape != block_indices.shape:
@@ -121,9 +138,10 @@ def _ell(name: str, multi: bool, block_indices, block_cols, blocks,
     if n_br == 0:
         return y
     rows = rows_per_cta(bs, n_br * (k // RHS_TILE if multi else 1) * n_mem)
-    args = [block_indices.data_ptr(), block_cols.data_ptr(),
-            blocks.data_ptr(), x_blocks.data_ptr(), y.data_ptr(), n_mem,
-            n_br, mb, nb, bs, n_bc] + ([k] if multi else []) + \
+    args = [block_indices.data_ptr(), block_cols.data_ptr()] + \
+        ([valid_counts.data_ptr()] if counted else []) + \
+        [blocks.data_ptr(), x_blocks.data_ptr(), y.data_ptr(), n_mem,
+         n_br, mb, nb, bs, n_bc] + ([k] if multi else []) + \
         [rows, _stream(blocks.device)]
     LAUNCHES[name] += 1
     _raise_on(name, _fn(name)(*args))
@@ -171,11 +189,13 @@ def _sell(name: str, multi: bool, cell_block, cell_col, cell_ptr, row_perm,
     return y
 
 
-def bsr_spmv_cuda(block_indices, block_cols, blocks, x_blocks):
+def bsr_spmv_cuda(block_indices, block_cols, blocks, x_blocks, *,
+                  valid_counts):
     """y = A @ x, A in ELL-BSR: (n_br, mb) indices, (nb, bs, bs) blocks,
-    x_blocks (n_bc, bs) -> (n_br, bs). Replaces ``bsr_spmv_pallas``."""
+    x_blocks (n_bc, bs), valid_counts (n_br,) int32, the real slots that
+    lead each row -> (n_br, bs). Replaces ``bsr_spmv_pallas``."""
     return _ell("bsr_spmv_ell", False, block_indices, block_cols, blocks,
-                x_blocks)
+                x_blocks, valid_counts)
 
 
 def bsr_spmm_cuda(block_indices, block_cols, blocks, x_blocks):

@@ -63,14 +63,15 @@ MATVEC_LAYOUTS = ("ell", "sell", "dense")
 # kernels compute k in tiles of 8 (one CTA per tile).
 RHS_TILE = K.RHS_TILE
 
-# (layout, multi-RHS) -> (CUDA kernel wrapper, plain PyTorch version); both
-# take the layout's index arrays, the blocks and the blocked RHS, and return
-# rows in original order.
+# (layout, multi-RHS) -> (CUDA kernel wrapper, plain PyTorch version, the
+# count the wrapper alone takes as a keyword, or None); both take the
+# layout's index arrays, the blocks and the blocked RHS, and return rows in
+# original order.
 _MATVEC_FNS = {
-    ("ell", False): (K.bsr_spmv_cuda, R.ref_bsr_spmv),
-    ("ell", True): (K.bsr_spmm_cuda, R.ref_bsr_spmm),
-    ("sell", False): (K.bsr_spmv_sell_cuda, R.ref_bsr_spmv_sell_perm),
-    ("sell", True): (K.bsr_spmm_sell_cuda, R.ref_bsr_spmm_sell_perm),
+    ("ell", False): (K.bsr_spmv_cuda, R.ref_bsr_spmv, "valid_counts"),
+    ("ell", True): (K.bsr_spmm_cuda, R.ref_bsr_spmm, None),
+    ("sell", False): (K.bsr_spmv_sell_cuda, R.ref_bsr_spmv_sell_perm, None),
+    ("sell", True): (K.bsr_spmm_sell_cuda, R.ref_bsr_spmm_sell_perm, None),
 }
 _LAYOUT_ARGS = {
     "ell": ("block_indices", "block_cols", "blocks"),
@@ -96,10 +97,12 @@ def _run_layout(arrays: Dict[str, torch.Tensor], layout: str,
     """One launch of the layout's kernel (or its plain version) on blocked
     x; arrays and xb may carry a leading member axis."""
     # multi-RHS x has as many dims as blocks: (n_bc, bs, k) vs (nb, bs, bs)
-    cuda_fn, plain_fn = _MATVEC_FNS[(layout,
-                                     xb.dim() == arrays["blocks"].dim())]
-    fn = cuda_fn if backend == "cuda" else plain_fn
-    return fn(*(arrays[k] for k in _LAYOUT_ARGS[layout]), xb)
+    cuda_fn, plain_fn, count = _MATVEC_FNS[(
+        layout, xb.dim() == arrays["blocks"].dim())]
+    args = [arrays[k] for k in _LAYOUT_ARGS[layout]] + [xb]
+    if backend != "cuda":
+        return plain_fn(*args)
+    return cuda_fn(*args, **({count: arrays[count]} if count else {}))
 
 
 # ---------------------------------------------------------------------------
@@ -315,6 +318,9 @@ def _stack_resident(sts: List, shape_bucket: bool):
                 for a, st in zip(A, sts)]),
             "block_cols": torch.stack([_pad_to(a["block_cols"],
                                                (n_br, width)) for a in A]),
+            # pad rows own no real slot
+            "valid_counts": torch.stack([_pad_to(a["valid_counts"], (n_br,))
+                                         for a in A]),
             "blocks": blocks}
     else:  # sell
         n_cells = max(a["cell_block"].shape[0] for a in A)
@@ -418,6 +424,9 @@ def _build_matvec_bucket(members: List, schedule: Schedule, sigma: int,
                     edge_dims=ed2)),
                 "block_cols": put(_stack_pad(
                     [h.block_cols for h in hosts], 0, edge_dims=ed2)),
+                # pad rows own no real slot
+                "valid_counts": put(_stack_pad(
+                    [h.valid_counts for h in hosts], 0, edge_dims=ed)),
                 "blocks": blocks,
             }
         else:
@@ -593,41 +602,49 @@ def _plan_matvec_bucket(members: List, schedule: Schedule, backend: str, *,
 # spgemm / spadd — the executor of their three kernels, host-prep helpers
 # ---------------------------------------------------------------------------
 
-# mode -> (CUDA kernel wrapper, plain PyTorch version, device arguments);
-# both take the arguments with an optional leading member axis.
+# mode -> (CUDA kernel wrapper, plain PyTorch version, device arguments,
+# the count the wrapper alone takes as a keyword, or None); both take the
+# arguments with an optional leading member axis.
 _PAIROP_FNS = {
     "pairs": (GK.bsr_spgemm_pairs_cuda, GR.ref_pair_gemm,
-              ("pair_a", "pair_b", "a_blocks", "b_blocks")),
+              ("pair_a", "pair_b", "a_blocks", "b_blocks"), "pair_counts"),
     "cells": (GK.bsr_spgemm_cells_cuda, GR.ref_cell_gemm_ptr,
-              ("cell_a", "cell_b", "cell_ptr", "a_blocks", "b_blocks")),
+              ("cell_a", "cell_b", "cell_ptr", "a_blocks", "b_blocks"),
+              None),
     "spadd": (AK.bsr_spadd_cuda, AR.ref_block_union_add,
-              ("ia", "ib", "a_blocks", "b_blocks")),
+              ("ia", "ib", "a_blocks", "b_blocks"), None),
 }
 
 
 def pairop_args(dev: Dict[str, torch.Tensor], mode: str,
-                n_out: Optional[int] = None) -> List[torch.Tensor]:
-    """The mode's kernel arguments from a prepared entry's device leaves.
-    ``n_out`` keeps only the first ``n_out`` output blocks of a single
-    (unstacked) plan: the plan returns the output cut to the real block
-    count, so the bucket-pad blocks past it are not computed at all."""
-    args = [dev[k] for k in _PAIROP_FNS[mode][2]]
+                n_out: Optional[int] = None
+                ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
+    """The mode's kernel arguments from a prepared entry's device leaves:
+    the positional ones both versions take, and the keyword count only the
+    CUDA wrapper takes. ``n_out`` keeps only the first ``n_out`` output
+    blocks of a single (unstacked) plan: the plan returns the output cut to
+    the real block count, so the bucket-pad blocks past it are not computed
+    at all."""
+    _, _, names, count = _PAIROP_FNS[mode]
+    args = [dev[k] for k in names]
+    kw = {count: dev[count]} if count else {}
     if n_out is not None:
-        # the leading index arrays are per output block (pairs, spadd), or
-        # the pointer is (cells: n_out + 1 entries)
+        # the leading index arrays and the counts are per output block
+        # (pairs, spadd), or the pointer is (cells: n_out + 1 entries)
         if mode == "cells":
             args[2] = args[2][: n_out + 1]
         else:
             args[0], args[1] = args[0][:n_out], args[1][:n_out]
-    return args
+            kw = {k: v[:n_out] for k, v in kw.items()}
+    return args, kw
 
 
 def _exec_pairop(dev: Dict[str, torch.Tensor], mode: str, backend: str,
                  n_out: Optional[int] = None) -> torch.Tensor:
     """One launch of the mode's kernel (or its plain version)."""
-    cuda_fn, plain_fn, _ = _PAIROP_FNS[mode]
-    fn = cuda_fn if backend == "cuda" else plain_fn
-    return fn(*pairop_args(dev, mode, n_out))
+    cuda_fn, plain_fn, _, _ = _PAIROP_FNS[mode]
+    args, kw = pairop_args(dev, mode, n_out)
+    return cuda_fn(*args, **kw) if backend == "cuda" else plain_fn(*args)
 
 
 def _with_zero_block(blocks: np.ndarray, bs: int) -> np.ndarray:
@@ -713,8 +730,10 @@ def _spgemm_host_products(a, b, schedule: Schedule):
                 "n_c": int(c_cols.size),
                 "out_shape": (a.shape[0], b.shape[1]), "bs": bs}
     c_ptrs, c_cols, pair_a, pair_b = spgemm_symbolic(bsr_a, bsr_b)
+    # real pairs lead each row, the sentinels fill the rest
+    counts = (pair_a != zero_a).sum(1).astype(np.int32)
     return {"mode": "pairs", "c_ptrs": c_ptrs, "c_cols": c_cols,
-            "pair_a": pair_a, "pair_b": pair_b,
+            "pair_a": pair_a, "pair_b": pair_b, "pair_counts": counts,
             "a_blocks": a_bl, "b_blocks": b_bl,
             "zero_a": zero_a, "zero_b": zero_b,
             "n_c": int(c_cols.size),
@@ -759,8 +778,8 @@ def _build_spgemm(a, b, schedule: Schedule, shape_bucket: bool,
                "cell_ptr": spgemm_cell_ptr(cc, n_c_pad, n_live)}
         n_pairs = n_live
     else:
-        pa, pb = h["pair_a"], h["pair_b"]
-        n_pairs = int((pa != h["zero_a"]).sum())
+        pa, pb, cnt = h["pair_a"], h["pair_b"], h["pair_counts"]
+        n_pairs = int(cnt.sum())
         if shape_bucket and pa.size:
             n_c_p, mp_p = bucket_edge(pa.shape[0]), bucket_edge(pa.shape[1])
             pa2 = np.full((n_c_p, mp_p), h["zero_a"], np.int32)
@@ -768,11 +787,12 @@ def _build_spgemm(a, b, schedule: Schedule, shape_bucket: bool,
             pb2 = np.full((n_c_p, mp_p), h["zero_b"], np.int32)
             pb2[: pb.shape[0], : pb.shape[1]] = pb
             pa, pb = pa2, pb2
+            cnt = _pad_rows(cnt, n_c_p, 0)   # pad blocks own no pair
             h["a_blocks"] = _pad_rows(h["a_blocks"],
                                       bucket_edge(h["a_blocks"].shape[0]), 0.0)
             h["b_blocks"] = _pad_rows(h["b_blocks"],
                                       bucket_edge(h["b_blocks"].shape[0]), 0.0)
-        dev = {"pair_a": pa, "pair_b": pb}
+        dev = {"pair_a": pa, "pair_b": pb, "pair_counts": cnt}
     dev["a_blocks"], dev["b_blocks"] = h["a_blocks"], h["b_blocks"]
     return {"mode": h["mode"],
             "dev": {k: _put(v, device) for k, v in dev.items()},
@@ -904,6 +924,9 @@ def _plan_spgemm_bucket(members: List, schedule: Schedule, backend: str, *,
                 "pair_b": _stack_pad([h["pair_b"] for h in hs],
                                      [h["zero_b"] for h in hs],
                                      edge_dims=ed2),
+                # each member's own counts; its pad blocks own no pair
+                "pair_counts": _stack_pad([h["pair_counts"] for h in hs], 0,
+                                          edge_dims=ed),
             }
         stacked["a_blocks"] = _stack_pad([h["a_blocks"] for h in hs], 0.0,
                                          edge_dims=ed)

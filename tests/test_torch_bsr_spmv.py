@@ -6,8 +6,11 @@ member form equals the per-member form; the wrappers' CUDA branch raises
 on a failed launch and never falls back; and the package imports neither
 jax nor ``repro``. The kernels themselves run on the card in
 ``test_torch_cuda.py``."""
+import ctypes
+import re
 import subprocess
 import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,14 +22,21 @@ from repro.core import CSR as JCSR
 from repro.core import ELLBSR as JELLBSR
 from repro.kernels.bsr_spmv import kernel as jk
 from repro.kernels.bsr_spmv import ref as jref
+from repro.sparse import SparseTensor as JSparseTensor
+from repro.sparse import plan as jplan
+from repro.sparse.resilience import GuardedExecutor
+from repro.core.autotune import Schedule as JSchedule
 from repro_torch.core import (BSR, CSR, ELLBSR, SELLBSR, Schedule,
                               spmm_oracle, spmv_oracle)
 from repro_torch.core.synthetic import gen_zipf
 from repro_torch.kernels import common
 from repro_torch.kernels.bsr_spmv import kernel as K
+from repro_torch.kernels.bsr_spgemm import kernel as GK
 from repro_torch.kernels.bsr_spmv import ops, ref
+from repro_torch.sparse import PreparedStore, SparseTensor, content_key, plan
 from repro_torch.sparse.ops_builtin import (_build_matvec_bucket,
-                                           _pad_member_axis)
+                                           _pad_member_axis, _stack_resident,
+                                           _member_tensors)
 
 ELL_SHAPES = [(64, 8), (100, 16), (257, 32), (96, 96)]
 SELL_SHAPES = [(64, 8, 2, 8), (100, 16, 4, 2), (257, 32, 3, 1000),
@@ -66,8 +76,11 @@ def _ell_case(n, bs, multi):
 def test_ell_plain_matches_jax_ref_and_interpret(n, bs, multi):
     d, ell, xb, x = _ell_case(n, bs, multi)
     args = (ell.block_indices, ell.block_cols, ell.blocks, xb)
-    wrapper = K.bsr_spmm_cuda if multi else K.bsr_spmv_cuda
-    y = wrapper(*(_t(a) for a in args)).numpy()   # CPU -> plain version
+    if multi:
+        y = K.bsr_spmm_cuda(*(_t(a) for a in args)).numpy()  # CPU: plain
+    else:
+        y = K.bsr_spmv_cuda(*(_t(a) for a in args),
+                            valid_counts=_t(ell.valid_counts)).numpy()
     jr = (jref.ref_bsr_spmm if multi else jref.ref_bsr_spmv)(
         *(jnp.asarray(a) for a in args))
     ji = (jk.bsr_spmm_pallas if multi else jk.bsr_spmv_pallas)(
@@ -147,10 +160,14 @@ def test_stacked_members_equal_per_member(layout, multi):
     fn = {("ell", False): K.bsr_spmv_cuda, ("ell", True): K.bsr_spmm_cuda,
           ("sell", False): K.bsr_spmv_sell_cuda,
           ("sell", True): K.bsr_spmm_sell_cuda}[(layout, multi)]
-    stacked = fn(*(arrs[n] for n in names), arrs["blocks"], _t(xs))
+    counted = (layout, multi) == ("ell", False)
+    stacked = fn(*(arrs[n] for n in names), arrs["blocks"], _t(xs),
+                 **({"valid_counts": arrs["valid_counts"]} if counted
+                    else {}))
     for b in range(4):
         one = fn(*(arrs[n][b] for n in names), arrs["blocks"][b],
-                 _t(xs[b]))
+                 _t(xs[b]), **({"valid_counts": arrs["valid_counts"][b]}
+                               if counted else {}))
         np.testing.assert_array_equal(stacked[b].numpy(), one.numpy())
     assert not stacked[3].any()                   # the zero member
     for b, m in enumerate(mats):
@@ -172,6 +189,151 @@ def test_oracles_match_dense_without_densifying():
                                atol=1e-10)
 
 
+# ------------------------------- valid_counts: the real slots of a row
+
+def _assert_real_prefix(idx, counts, zero):
+    """Slots ``[:counts[r]]`` of row r hold real blocks, the rest the zero
+    block."""
+    slot = np.arange(idx.shape[-1])
+    real = slot[None, :] < counts[:, None]
+    assert (idx[real] != zero).all() and (idx[~real] == zero).all()
+
+
+@pytest.mark.parametrize("shape_bucket", [False, True])
+@pytest.mark.parametrize("n,bs", [(100, 16), (257, 32), (300, 64)])
+def test_valid_counts_match_jax_and_mark_the_real_prefix(n, bs,
+                                                         shape_bucket):
+    csr = gen_zipf(n, seed=n)
+    jcsr = JCSR(csr.row_ptrs, csr.col_idxs, csr.nnz_vals, csr.shape)
+    st = SparseTensor.from_csr(csr, block_size=bs,
+                               shape_bucket=shape_bucket, device="cpu")
+    jst = JSparseTensor.from_csr(jcsr, block_size=bs,
+                                 shape_bucket=shape_bucket)
+    vc = st.arrays["valid_counts"].numpy()
+    np.testing.assert_array_equal(vc, np.asarray(jst.arrays["valid_counts"]))
+    assert vc.dtype == np.int32
+    _assert_real_prefix(st.arrays["block_indices"].numpy(), vc, st._zero_idx)
+
+
+@pytest.mark.parametrize("resident", [False, True])
+@pytest.mark.parametrize("shape_bucket", [False, True])
+def test_bucket_valid_counts_are_per_member(resident, shape_bucket):
+    """Stacked buckets of unequal members, built from host containers or
+    from the members' resident tensors: member b's counts are its own
+    (its pad rows 0) and mark the real prefix against its own zero block;
+    the padded zero members own no slot."""
+    bs = 16
+    mats = [gen_zipf(n, seed=n) for n in (120, 90, 64)]
+    sched = Schedule("bsr", bs, 1.0)
+    dev = torch.device("cpu")
+    if resident:
+        sts = _member_tensors(mats, sched, 4, shape_bucket,
+                              PreparedStore(), [content_key(m) for m in mats],
+                              dev)
+        built = _stack_resident(sts, shape_bucket)
+    else:
+        built = _build_matvec_bucket(mats, sched, 4, shape_bucket, dev)
+    arrs = _pad_member_axis(built, 4)["arrays"]
+    vc, idx = arrs["valid_counts"].numpy(), arrs["block_indices"].numpy()
+    assert vc.shape == idx.shape[:2] and vc.dtype == np.int32
+    for b, m in enumerate(mats):
+        jell = JELLBSR.from_bsr(JBSR.from_csr(
+            JCSR(m.row_ptrs, m.col_idxs, m.nnz_vals, m.shape), bs))
+        own = np.asarray(jell.valid_counts)
+        np.testing.assert_array_equal(vc[b, : own.size], own)
+        assert not vc[b, own.size:].any()
+        _assert_real_prefix(idx[b], vc[b], jell.blocks.shape[0] - 1)
+    assert not vc[3].any()                        # the zero member
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf])
+@pytest.mark.parametrize("where", ["first_block", "real_column"])
+def test_plan_spmv_ell_nonfinite_x_matches_jax(bad, where):
+    """A NaN or an Inf in x[0:bs] (the column every ELL pad slot reads) or
+    in a real column gives the JAX facade's NaN/Inf pattern: the port's
+    plain path sums every slot, as the Pallas kernel does. Block-rows 0-11
+    hold two real blocks and no pad slot, the last one real block and one
+    pad slot. (The JAX plan runs without its NaN guard, which would serve
+    a dense fallback.)"""
+    n, bs = 200, 16
+    n_br = -(-n // bs)
+    rng = np.random.default_rng(0)
+    d = np.zeros((n, n), np.float32)
+    for r in range(n_br):
+        for c in (r, r + 1):
+            d[r * bs:(r + 1) * bs, c * bs:(c + 1) * bs] = rng.standard_normal(
+                d[r * bs:(r + 1) * bs, c * bs:(c + 1) * bs].shape)
+    csr = CSR.from_dense(d)
+    jcsr = JCSR(csr.row_ptrs, csr.col_idxs, csr.nnz_vals, csr.shape)
+    x = rng.standard_normal(n).astype(np.float32)
+    x[3 if where == "first_block" else 5 * bs + 2] = bad
+    y = plan("spmv", (csr,), schedule=Schedule("bsr", bs, 1.0),
+             shape_bucket=False, device="cpu").execute(x).numpy()
+    jy = np.asarray(jplan("spmv", (jcsr,), schedule=JSchedule("bsr", bs, 1.0),
+                          backend="jnp", shape_bucket=False,
+                          executor=GuardedExecutor(nan_guard=False)
+                          ).execute(x))
+    np.testing.assert_array_equal(np.isnan(y), np.isnan(jy))
+    np.testing.assert_array_equal(np.isinf(y), np.isinf(jy))
+    np.testing.assert_array_equal(y[np.isinf(jy)], jy[np.isinf(jy)])
+    fin = np.isfinite(jy)
+    assert (~fin).any() and fin.any()
+    # the last block-row reads x[0:bs] only through its pad slot
+    assert np.isnan(y[(n_br - 1) * bs:]).all() == (where == "first_block")
+    np.testing.assert_allclose(y[fin], jy[fin], rtol=2e-5, atol=2e-5)
+
+
+def _c_argtypes(source: str):
+    """{entry point: ctypes argument types} parsed from the ``extern "C"``
+    block of ``csrc/<source>.cu``."""
+    path = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" /
+            "csrc" / f"{source}.cu")
+    block = path.read_text().split('extern "C" {', 1)[1]
+    sigs = {}
+    for name, params in re.findall(r"int (\w+)\(([^)]*)\)\s*\{", block):
+        types = []
+        for param in (" ".join(q.split()) for q in params.split(",")):
+            if "*" in param or param.startswith("cudaStream_t"):
+                types.append(ctypes.c_void_p)
+            elif param.startswith("long long "):
+                types.append(ctypes.c_longlong)
+            else:
+                assert param.startswith("int "), param
+                types.append(ctypes.c_int)
+        sigs[name] = types
+    return sigs
+
+
+def test_ctypes_argtypes_match_the_cu_signatures():
+    """Each wrapper's ctypes argument list is its kernel's C signature (a
+    pointer passed as a 32-bit int, or a count in the wrong place, would
+    reach the kernel silently)."""
+    spmv = _c_argtypes("bsr_spmv")
+    assert sorted(spmv) == sorted(K._ARGTYPES)
+    for name, types in K._ARGTYPES.items():
+        assert spmv[name] == types, name
+    gemm = _c_argtypes("bsr_spgemm")
+    assert sorted(gemm) == ["bsr_spgemm_cells", "bsr_spgemm_pairs"]
+    for name, types in gemm.items():
+        assert types == GK._ARGTYPES, name
+    # the counted ELL SpMV takes valid_counts third
+    assert spmv["bsr_spmv_ell"][:3] == [ctypes.c_void_p] * 3
+    assert len(spmv["bsr_spmv_ell"]) == len(spmv["bsr_spmm_ell"])
+
+
+def test_spmv_wrapper_needs_its_valid_counts():
+    """The count is required, on CPU tensors as on the card, and must have
+    the rows' shape and int32."""
+    ell = ELLBSR.from_bsr(BSR.from_csr(gen_zipf(64, seed=1), 16))
+    xb = torch.zeros((4, 16))
+    args = [_t(ell.block_indices), _t(ell.block_cols), _t(ell.blocks), xb]
+    with pytest.raises(TypeError, match="valid_counts"):
+        K.bsr_spmv_cuda(*args)
+    for bad in (_t(ell.valid_counts).long(), _t(ell.valid_counts)[:2]):
+        with pytest.raises(ValueError, match="valid_counts"):
+            K.bsr_spmv_cuda(*args, valid_counts=bad)
+
+
 # ------------------------------------------------ the wrappers' CUDA branch
 
 def _meta_ell(multi):
@@ -183,6 +345,10 @@ def _meta_ell(multi):
     x = torch.zeros((4, 8, 8) if multi else (4, 8), dtype=torch.float32,
                     device=dev)
     return idx, idx.clone(), blocks, x
+
+
+def _meta_counts():
+    return torch.zeros(4, dtype=torch.int32, device="meta")
 
 
 @pytest.mark.parametrize("name", sorted(K.LAUNCHES))
@@ -198,9 +364,11 @@ def test_wrappers_raise_on_failed_launch_without_fallback(name, monkeypatch):
     idx, cols, blocks, x = _meta_ell(multi)
     before = K.LAUNCHES[name]
     with pytest.raises(RuntimeError, match="CUDA launch failed"):
-        if not name.endswith("_sell"):
-            (K.bsr_spmm_cuda if multi else K.bsr_spmv_cuda)(idx, cols,
-                                                            blocks, x)
+        if multi and not name.endswith("_sell"):
+            K.bsr_spmm_cuda(idx, cols, blocks, x)
+        elif not name.endswith("_sell"):
+            K.bsr_spmv_cuda(idx, cols, blocks, x,
+                            valid_counts=_meta_counts())
         else:
             cb = torch.zeros(6, dtype=torch.int32, device="meta")
             ptr = torch.zeros(5, dtype=torch.int32, device="meta")
@@ -212,17 +380,19 @@ def test_wrappers_raise_on_failed_launch_without_fallback(name, monkeypatch):
 
 def test_wrappers_reject_what_the_kernel_does_not_take():
     idx, cols, blocks, x = _meta_ell(False)
+    vc = _meta_counts()
     with pytest.raises(TypeError):
-        K.bsr_spmv_cuda(idx.long(), cols, blocks, x)
+        K.bsr_spmv_cuda(idx.long(), cols, blocks, x, valid_counts=vc)
     with pytest.raises(ValueError, match="multiple of 8"):
         K.bsr_spmm_cuda(idx, cols, blocks,
                         torch.zeros((4, 8, 5), device="meta"))
     with pytest.raises(ValueError, match="block size"):
         K.bsr_spmv_cuda(idx, cols, torch.zeros((5, 6, 6), device="meta"),
-                        torch.zeros((4, 6), device="meta"))
+                        torch.zeros((4, 6), device="meta"), valid_counts=vc)
     with pytest.raises(ValueError, match="contiguous"):
         K.bsr_spmv_cuda(idx, cols, blocks, torch.zeros((8, 4),
-                                                       device="meta").t())
+                                                       device="meta").t(),
+                        valid_counts=vc)
 
 
 # ------------------------------------------------------------ guards

@@ -25,6 +25,7 @@ from repro_torch.kernels.bsr_spmv import kernel as K
 from repro_torch.kernels.bsr_spmv import ops, ref
 from repro_torch.kernels.bsr_spadd import kernel as AK
 from repro_torch.kernels.bsr_spgemm import kernel as GK
+from repro_torch.kernels.bsr_spgemm import ref as GR
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import ref as FR
 from repro_torch.kernels.moe_gmm import kernel as MK
@@ -70,10 +71,12 @@ def test_kernel_matches_plain(card, n, bs, layout, multi):
     x = rng.standard_normal((n, 16) if multi else n).astype(np.float32)
     xb = _x_blocks(x, -(-n // bs), bs, card)
     if layout == "ell":
-        idx, cols, blocks, _ = ops.ell_device_arrays(ELLBSR.from_bsr(bsr),
-                                                     card)
+        ell = ELLBSR.from_bsr(bsr)
+        idx, cols, blocks, _ = ops.ell_device_arrays(ell, card)
         args = (idx, cols, blocks)
-        fn = K.bsr_spmm_cuda if multi else K.bsr_spmv_cuda
+        vc = torch.as_tensor(ell.valid_counts, device=card)
+        fn = (K.bsr_spmm_cuda if multi else
+              lambda *a: K.bsr_spmv_cuda(*a, valid_counts=vc))
         plain = ref.ref_bsr_spmm if multi else ref.ref_bsr_spmv
     else:
         args = ops.sell_device_arrays(SELLBSR.from_bsr(bsr, 4, 8), card)
@@ -104,6 +107,187 @@ def test_plan_and_bucket_on_card(card, layout):
     for y, m, x in zip(ys, mats, xs):
         np.testing.assert_allclose(y.cpu().numpy(), spmv_oracle(m, x),
                                    rtol=1e-4, atol=1e-4)
+
+
+# ------------------------- bsr_spmv_ell: real slots plus one pad slot
+
+REDESIGN_BS = [8, 16, 32, 96, 128, 256]
+
+
+def _ell_members(rng, bs, case, n_mem):
+    """Stacked ELL arrays built by hand: real slots lead each row (random
+    tiles and columns), the rest hold the member's own zero block and
+    column 0; each member's zero block sits at its own index, with bucket
+    pad blocks (zeros) after it. Rows with 0 real slots, rows with no pad
+    slot, and, for ``case == "long"``, rows longer than one 256-slot index
+    batch."""
+    n_br, n_bc = 6, 5
+    mb = 300 if case == "long" else 7
+    nb = 10                                    # blocks incl. pad blocks
+    idx = np.zeros((n_mem, n_br, mb), np.int32)
+    cols = np.zeros((n_mem, n_br, mb), np.int32)
+    counts = np.zeros((n_mem, n_br), np.int32)
+    blocks = np.zeros((n_mem, nb, bs, bs), np.float32)
+    for b in range(n_mem):
+        zero = 6 + b % 3                       # the member's sentinel
+        blocks[b, :zero] = rng.standard_normal((zero, bs, bs))
+        cnt = np.array([0, mb, mb - 1, 1, mb // 2, 2 + b])[:n_br]
+        counts[b] = cnt
+        for r, c in enumerate(cnt):
+            idx[b, r] = zero
+            idx[b, r, :c] = rng.integers(0, zero, c)
+            cols[b, r, :c] = rng.integers(0, n_bc, c)
+    x = rng.standard_normal((n_mem, n_bc, bs)).astype(np.float32)
+    return idx, cols, counts, blocks, x
+
+
+def _near(got, want, tol=1e-4):
+    """NaN where ``want`` is NaN, the same infinities, and the finite rest
+    within ``tol * max|want|``."""
+    assert got.shape == want.shape
+    assert torch.equal(got.isnan(), want.isnan())
+    inf = want.isinf()
+    assert torch.equal(got.isinf(), inf) and torch.equal(got[inf], want[inf])
+    fin = want.isfinite()
+    if fin.any():
+        d = float((got[fin] - want[fin]).abs().max())
+        assert d <= tol * max(float(want[fin].abs().max()), 1e-30), d
+
+
+@pytest.mark.parametrize("bs", REDESIGN_BS)
+@pytest.mark.parametrize("case", ["short", "long"])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_spmv_ell_counts_match_all_slot_plain(card, bs, case, stacked):
+    rng = np.random.default_rng(bs + len(case))
+    n_mem = 3 if stacked else 1
+    arrs = [torch.as_tensor(a, device=card)
+            for a in _ell_members(rng, bs, case, n_mem)]
+    if not stacked:
+        arrs = [a[0] for a in arrs]
+    idx, cols, counts, blocks, x = arrs
+    before = K.LAUNCHES["bsr_spmv_ell"]
+    y = K.bsr_spmv_cuda(idx, cols, blocks, x, valid_counts=counts)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["bsr_spmv_ell"] == before + 1
+    _near(y, ref.ref_bsr_spmv(idx, cols, blocks, x))
+
+
+@pytest.mark.parametrize("bs", REDESIGN_BS)
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+@pytest.mark.parametrize("where", ["first_block", "real_column"])
+def test_spmv_ell_nonfinite_x_gives_plain_nan_pattern(card, bs, bad, where):
+    """A NaN or an Inf in ``x_blocks[0]`` (which every pad slot reads) or
+    in a real column: NaN in exactly the rows the all-slot sum makes NaN,
+    rows without a pad slot included."""
+    rng = np.random.default_rng(bs)
+    idx, cols, counts, blocks, x = (torch.as_tensor(a[0], device=card)
+                                    for a in _ell_members(rng, bs, "short",
+                                                          1))
+    x[0 if where == "first_block" else 3, bs // 2] = bad
+    y = K.bsr_spmv_cuda(idx, cols, blocks, x, valid_counts=counts)
+    torch.cuda.synchronize()
+    want = ref.ref_bsr_spmv(idx, cols, blocks, x)
+    assert bool((want.isnan() if where == "first_block"
+                 else ~want.isfinite()).any())
+    _near(y, want)
+
+
+def test_spmv_ell_wrapper_needs_its_counts(card):
+    idx = torch.zeros((4, 3), dtype=torch.int32, device=card)
+    blocks = torch.zeros((5, 8, 8), device=card)
+    x = torch.zeros((4, 8), device=card)
+    with pytest.raises(TypeError, match="valid_counts"):
+        K.bsr_spmv_cuda(idx, idx, blocks, x)
+    with pytest.raises(ValueError, match="valid_counts"):
+        K.bsr_spmv_cuda(idx, idx, blocks, x, valid_counts=idx[:, 0].long())
+
+
+def test_spmv_ell_wrapper_needs_aligned_x(card):
+    """The kernel copies x segments 16 bytes at a time: a contiguous view
+    of x one float into its storage is refused, not launched."""
+    idx = torch.zeros((4, 3), dtype=torch.int32, device=card)
+    blocks = torch.zeros((5, 8, 8), device=card)
+    counts = torch.zeros(4, dtype=torch.int32, device=card)
+    x = torch.zeros(4 * 8 + 1, device=card)[1:].view(4, 8)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    before = K.LAUNCHES["bsr_spmv_ell"]
+    with pytest.raises(ValueError, match="x_blocks must be 16-byte aligned"):
+        K.bsr_spmv_cuda(idx, idx, blocks, x, valid_counts=counts)
+    assert K.LAUNCHES["bsr_spmv_ell"] == before
+
+
+# --------------------- bsr_spgemm_pairs: the real pairs of each block
+
+def _pair_members(rng, bs, case, n_mem):
+    """Stacked pair lists built by hand: real pairs lead each row, the
+    rest are the member's own (A sentinel, B sentinel); blocks with 0
+    pairs, with every slot real, and (``case == "long"``) more pairs than
+    one index batch and the ring hold."""
+    n_c = 5
+    mp = {"short": 5, "long": 300 if bs >= 96 else 40, "empty": 3}[case]
+    n_a, n_b = 8, 9                            # tiles incl. pad tiles
+    pa = np.zeros((n_mem, n_c, mp), np.int32)
+    pb = np.zeros((n_mem, n_c, mp), np.int32)
+    counts = np.zeros((n_mem, n_c), np.int32)
+    a = np.zeros((n_mem, n_a, bs, bs), np.float32)
+    b = np.zeros((n_mem, n_b, bs, bs), np.float32)
+    for m in range(n_mem):
+        za, zb = 5 + m % 3, 4 + m % 2          # the member's sentinels
+        a[m, :za] = rng.standard_normal((za, bs, bs))
+        b[m, :zb] = rng.standard_normal((zb, bs, bs))
+        cnt = (np.zeros(n_c, np.int32) if case == "empty" else
+               np.array([0, mp, 1, mp - 1, m + 1])[:n_c])
+        counts[m] = cnt
+        for k, c in enumerate(cnt):
+            pa[m, k], pb[m, k] = za, zb
+            pa[m, k, :c] = rng.integers(0, za, c)
+            pb[m, k, :c] = rng.integers(0, zb, c)
+    return pa, pb, counts, a, b
+
+
+@pytest.mark.parametrize("bs", REDESIGN_BS)
+@pytest.mark.parametrize("case", ["short", "long", "empty"])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_spgemm_pairs_counts_match_all_slot_plain(card, bs, case, stacked):
+    rng = np.random.default_rng(bs + len(case))
+    n_mem = 2 if stacked else 1
+    arrs = [torch.as_tensor(t, device=card)
+            for t in _pair_members(rng, bs, case, n_mem)]
+    if not stacked:
+        arrs = [t[0] for t in arrs]
+    pa, pb, counts, a, b = arrs
+    before = GK.LAUNCHES["bsr_spgemm_pairs"]
+    c = GK.bsr_spgemm_pairs_cuda(pa, pb, a, b, pair_counts=counts)
+    torch.cuda.synchronize()
+    assert GK.LAUNCHES["bsr_spgemm_pairs"] == before + 1
+    want = GR.ref_pair_gemm(pa, pb, a, b)
+    if case == "empty":
+        assert not bool(c.any())
+    _near(c, want)
+
+
+def test_spgemm_pairs_nonfinite_tile_gives_plain_nan_pattern(card):
+    """A NaN and an Inf in real A and B tiles: the products that read them
+    are NaN or Inf exactly as in the all-slot sum."""
+    rng = np.random.default_rng(5)
+    pa, pb, counts, a, b = (torch.as_tensor(t[0], device=card) for t in
+                            _pair_members(rng, 32, "short", 1))
+    a[int(pa[1, 0]), 3, 4] = float("nan")
+    b[int(pb[2, 0]), 5, 6] = float("inf")
+    c = GK.bsr_spgemm_pairs_cuda(pa, pb, a, b, pair_counts=counts)
+    torch.cuda.synchronize()
+    want = GR.ref_pair_gemm(pa, pb, a, b)
+    assert bool(want.isnan().any())
+    _near(c, want)
+
+
+def test_spgemm_pairs_wrapper_needs_its_counts(card):
+    pa = torch.zeros((4, 3), dtype=torch.int32, device=card)
+    a = torch.zeros((5, 8, 8), device=card)
+    with pytest.raises(TypeError, match="pair_counts"):
+        GK.bsr_spgemm_pairs_cuda(pa, pa, a, a)
+    with pytest.raises(ValueError, match="pair_counts"):
+        GK.bsr_spgemm_pairs_cuda(pa, pa, a, a, pair_counts=pa[:3, 0])
 
 
 # ------------------------------------------------------- spgemm / spadd
@@ -137,9 +321,9 @@ def test_pairop_kernel_matches_plain(card, n, bs, mode, stacked):
                   ("spgemm", "sell" if mode == "cells" else "ell"))
     dev, got_mode = _pairop_entry(card, op, layout, n, bs, stacked)
     assert got_mode == mode
-    cuda_fn, plain_fn, names = ops_builtin._PAIROP_FNS[mode]
-    args = [dev[k] for k in names]
-    c = cuda_fn(*args)
+    cuda_fn, plain_fn, _, _ = ops_builtin._PAIROP_FNS[mode]
+    args, kw = ops_builtin.pairop_args(dev, mode)
+    c = cuda_fn(*args, **kw)
     torch.cuda.synchronize()
     want = plain_fn(*args)
     if mode == "spadd":

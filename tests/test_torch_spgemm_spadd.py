@@ -183,6 +183,84 @@ def test_prepared_leaves_equal_jax(layout, shape_bucket):
                                       np.asarray(want), err_msg=name)
 
 
+def _assert_pairs_lead(pa, pb, counts, zero_a, zero_b):
+    """Slots ``[:counts[k]]`` of row k are real pairs, the rest the
+    (A sentinel, B sentinel) pad."""
+    real = np.arange(pa.shape[-1])[None, :] < counts[:, None]
+    assert (pa[real] != zero_a).all() and (pb[real] != zero_b).all()
+    assert (pa[~real] == zero_a).all() and (pb[~real] == zero_b).all()
+
+
+@pytest.mark.parametrize("n,bs", [(48, 8), (100, 16), (130, 32)])
+@pytest.mark.parametrize("shape_bucket", [False, True])
+def test_pair_counts_match_jax_symbolic(n, bs, shape_bucket):
+    """The port's pair counts are the non-sentinel pairs per row of JAX's
+    ``spgemm_symbolic``, lead each row, and reach the plan's store entry
+    (bucket pad blocks own no pair)."""
+    (a, ja), (b, jb) = _sparse(n, n, 0.08, n), _sparse(n, n, 0.08, n + 1)
+    ba, bb = BSR.from_csr(a, bs), BSR.from_csr(b, bs)
+    s, _ = _scheds("ell", bs)
+    counts = ops_builtin._spgemm_host_products(a, b, s)["pair_counts"]
+    _, _, jpa, jpb = jgops.spgemm_symbolic(jops.BSR.from_csr(ja, bs),
+                                           jops.BSR.from_csr(jb, bs))
+    assert counts.dtype == np.int32
+    np.testing.assert_array_equal(
+        counts, (np.asarray(jpa) != ba.n_blocks).sum(axis=1))
+    _assert_pairs_lead(np.asarray(jpa), np.asarray(jpb), counts, ba.n_blocks,
+                       bb.n_blocks)
+    prep = ops_builtin._build_spgemm(a, b, s, shape_bucket,
+                                     torch.device(CPU))
+    dev = {k: v.numpy() for k, v in prep["dev"].items()}
+    got = dev["pair_counts"]
+    assert got.shape == dev["pair_a"].shape[:1]
+    np.testing.assert_array_equal(got[: counts.size], counts)
+    assert not got[counts.size:].any() and prep["n_pairs"] == counts.sum()
+    _assert_pairs_lead(dev["pair_a"], dev["pair_b"], got, prep["zero_a"],
+                       prep["zero_b"])
+    args, kw = ops_builtin.pairop_args(prep["dev"], "pairs", prep["n_c"])
+    assert kw["pair_counts"].shape == args[0].shape[:1] == (prep["n_c"],)
+
+
+def test_bucket_pair_counts_are_per_member():
+    """In a stacked bucket each member's counts are its own (against its
+    own sentinels), its pad blocks own no pair, and so do the padded zero
+    members."""
+    pairs = _pairs3("gemm")
+    s, _ = _scheds("ell", 16)
+    store = PreparedStore()
+    plan_bucket("spgemm", [(a, b) for (a, _), (b, _) in pairs], s,
+                device=CPU, store=store)
+    (entry, _), = store._entries.values()
+    st = {k: v.numpy() for k, v in entry["stacked"].items()}
+    assert st["pair_counts"].shape == st["pair_a"].shape[:2]
+    for m, ((a, _), (b, _)) in enumerate(pairs):
+        ba, bb = BSR.from_csr(a, 16), BSR.from_csr(b, 16)
+        _, _, pa, _ = gops.spgemm_symbolic(ba, bb)
+        counts = (pa != ba.n_blocks).sum(1)
+        np.testing.assert_array_equal(st["pair_counts"][m, : counts.size],
+                                      counts)
+        assert not st["pair_counts"][m, counts.size:].any()
+        _assert_pairs_lead(st["pair_a"][m], st["pair_b"][m],
+                           st["pair_counts"][m], ba.n_blocks, bb.n_blocks)
+    assert not st["pair_counts"][len(pairs):].any()
+
+
+def test_pairs_wrapper_needs_its_counts():
+    """The count is required, on CPU tensors as on the card, and must have
+    the pair rows' shape and int32."""
+    (a, _), (b, _) = _sparse(64, 64, 0.1, 3), _sparse(64, 64, 0.1, 4)
+    prep = ops_builtin._build_spgemm(a, b, _scheds("ell", 16)[0], False,
+                                     torch.device(CPU))
+    (pa, pb, ab, bb), kw = ops_builtin.pairop_args(prep["dev"], "pairs")
+    with pytest.raises(TypeError, match="pair_counts"):
+        GK.bsr_spgemm_pairs_cuda(pa, pb, ab, bb)
+    for bad in (kw["pair_counts"].long(), kw["pair_counts"][:1]):
+        with pytest.raises(ValueError, match="pair_counts"):
+            GK.bsr_spgemm_pairs_cuda(pa, pb, ab, bb, pair_counts=bad)
+    c = GK.bsr_spgemm_pairs_cuda(pa, pb, ab, bb, **kw)   # CPU: plain
+    torch.testing.assert_close(c, gref.ref_pair_gemm(pa, pb, ab, bb))
+
+
 # The bucket tests below execute JAX buckets at bs=32: the JAX package's own
 # bucket tests (bs=16, same shapes) assert that their stacked program is
 # traced exactly once, which a same-shape compile earlier in the process
@@ -416,7 +494,10 @@ def _meta_args(name):
     i32 = torch.int32
     blocks = (_meta((5, 8, 8)), _meta((4, 8, 8)))
     if name == "bsr_spgemm_pairs":
-        return (GK.bsr_spgemm_pairs_cuda, GK,
+        def pairs(pa, pb, a, b):   # the counts follow pair_a's leading axes
+            return GK.bsr_spgemm_pairs_cuda(
+                pa, pb, a, b, pair_counts=_meta(pa.shape[:-1], i32))
+        return (pairs, GK,
                 (_meta((6, 3), i32), _meta((6, 3), i32)) + blocks)
     if name == "bsr_spgemm_cells":
         return (GK.bsr_spgemm_cells_cuda, GK,
