@@ -60,16 +60,18 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      the port never calls; each row names its call)
      and the bound on an H100: the larger of bytes / 3.35 TB/s and fp32
      operations / 67 TFLOP/s, operations counted on real tokens (moe) and
-     on the causal half (flash). ``bsr_spmv_ell`` is also run with an Inf
-     and then a NaN in ``x_blocks[0]`` and must give NaN in exactly the
-     rows where its plain (all-slot) version does.
+     on the causal half (flash). Each of the four SpMV/SpMM kernels is also
+     run with an Inf and then a NaN in ``x_blocks[0]`` (which their pad
+     slots and cells read; the operands are shape-bucketed, so the SELL
+     bucket-pad cells of the last sorted row are among them) and must give
+     NaN in exactly the outputs where its plain (all-slot, all-cell)
+     version does.
 Each main path zeroes its kernels' launch counts just before it and reads
 them just after; every kernel must have launched there. The last lines are
 the ``kernels`` JSON line, the card line and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
-import functools
 import json
 import shutil
 import statistics
@@ -213,24 +215,24 @@ def torch_csr(A, device: str):
 # ------------------------------------------------------------ spmv / spmm
 
 def kernel_args(st, multi: bool):
-    """(kernel name, CUDA wrapper, plain version, index tensors) of a
-    prepared operand; the ELL SpMV wrapper comes with its operand's
-    ``valid_counts`` bound."""
+    """(kernel name, CUDA wrapper, plain version, index tensors, count
+    keyword) of a prepared operand; the count keyword is the one the SpMV
+    wrappers alone take (``valid_counts`` / ``cell_valid`` of the operand),
+    else empty."""
     from repro_torch.kernels.bsr_spmv import kernel as K
     from repro_torch.kernels.bsr_spmv import ref as R
     a = st.arrays
     if st.layout == "ell":
         idx = (a["block_indices"], a["block_cols"])
-        spmv = functools.partial(K.bsr_spmv_cuda,
-                                 valid_counts=a["valid_counts"])
-        return (("bsr_spmm_ell", K.bsr_spmm_cuda, R.ref_bsr_spmm, idx)
+        return (("bsr_spmm_ell", K.bsr_spmm_cuda, R.ref_bsr_spmm, idx, {})
                 if multi else
-                ("bsr_spmv_ell", spmv, R.ref_bsr_spmv, idx))
+                ("bsr_spmv_ell", K.bsr_spmv_cuda, R.ref_bsr_spmv, idx,
+                 {"valid_counts": a["valid_counts"]}))
     idx = (a["cell_block"], a["cell_col"], a["cell_ptr"], a["row_perm"])
     return (("bsr_spmm_sell", K.bsr_spmm_sell_cuda, R.ref_bsr_spmm_sell_perm,
-             idx) if multi else
+             idx, {}) if multi else
             ("bsr_spmv_sell", K.bsr_spmv_sell_cuda, R.ref_bsr_spmv_sell_perm,
-             idx))
+             idx, {"cell_valid": a["cell_valid"]}))
 
 
 def bound(nbytes: float, flops: float):
@@ -266,16 +268,18 @@ def matvec_work(st, multi: bool, k: int):
     return nbytes, 2.0 * n_real * bs * bs * kk
 
 
-def check_nonfinite_pattern(cuda_fn, plain_fn, idx, blocks, xb,
-                            inp_name: str) -> None:
+def check_nonfinite_pattern(name: str, cuda_fn, plain_fn, idx, count: dict,
+                            blocks, xb, inp_name: str) -> None:
     """With an Inf, then a NaN, in ``x_blocks[0]`` (the column every ELL
-    pad slot reads), the kernel gives NaN in exactly the outputs where its
+    pad slot and SELL pad cell reads), kernel ``name`` (its wrapper called
+    with its ``count`` keyword) gives NaN in exactly the outputs where its
     plain all-slot version does, the same infinities, and agrees with it
     on the finite rest."""
     for bad in (float("inf"), float("nan")):
         xbad = xb.clone()
         xbad[0, 0] = bad
-        y_k, y_p = cuda_fn(*idx, blocks, xbad), plain_fn(*idx, blocks, xbad)
+        y_k = cuda_fn(*idx, blocks, xbad, **count)
+        y_p = plain_fn(*idx, blocks, xbad)
         same_nan = bool((y_k.isnan() == y_p.isnan()).all())
         inf = y_p.isinf()
         same_inf = bool((y_k.isinf() == inf).all()
@@ -283,12 +287,13 @@ def check_nonfinite_pattern(cuda_fn, plain_fn, idx, blocks, xb,
         fin = y_p.isfinite()
         d = float((y_k[fin] - y_p[fin]).abs().max()) if fin.any() else 0.0
         m = float(y_p[fin].abs().max()) if fin.any() else 0.0
-        emit({"check": "bsr_spmv_ell non-finite x_blocks[0]",
-              "input": inp_name, "x_blocks0": str(bad), "nan_outputs": int(y_p.isnan().sum()),
+        emit({"check": f"{name} non-finite x_blocks[0]",
+              "input": inp_name, "x_blocks0": str(bad),
+              "nan_outputs": int(y_p.isnan().sum()),
               "inf_outputs": int(inf.sum()), "nan_pattern_equal": same_nan,
               "inf_equal": same_inf, "finite_max_abs_err": d})
         check(same_nan and same_inf and d <= TOL * max(m, 1e-30),
-              f"bsr_spmv_ell on {inp_name} with {bad} in x_blocks[0]: NaN "
+              f"{name} on {inp_name} with {bad} in x_blocks[0]: NaN "
               f"pattern equal {same_nan}, infinities equal {same_inf}, "
               f"finite outputs {d:.3e} apart")
 
@@ -390,7 +395,7 @@ def run_matvec(device: str, inputs, members, seed: int, timer) -> dict:
             bs = st.block_size
             n_bc = -(-st.meta.shape[1] // bs)
             for multi in (False, True):
-                name, cuda_fn, plain_fn, idx = kernel_args(st, multi)
+                name, cuda_fn, plain_fn, idx, count = kernel_args(st, multi)
                 xh = inp["X"] if multi else inp["x"]
                 ref = inp["Y_ref"] if multi else inp["y_ref"]
                 xt = torch.as_tensor(xh, device=device)
@@ -399,7 +404,7 @@ def run_matvec(device: str, inputs, members, seed: int, timer) -> dict:
                 xb[: xh.shape[0]] = xt
                 xb = xb.reshape((n_bc, bs) + xh.shape[1:])
                 blocks = st.arrays["blocks"]
-                y_k = cuda_fn(*idx, blocks, xb)
+                y_k = cuda_fn(*idx, blocks, xb, **count)
                 y_p = plain_fn(*idx, blocks, xb)
                 sync(device)
                 rows = A.shape[0]
@@ -412,10 +417,9 @@ def run_matvec(device: str, inputs, members, seed: int, timer) -> dict:
                       f"{name} on {inp['name']}: kernel vs plain {e_kp:.3e},"
                       f" kernel vs oracle {e_ko:.3e}, plain vs oracle "
                       f"{e_po:.3e}")
-                if name == "bsr_spmv_ell":
-                    check_nonfinite_pattern(cuda_fn, plain_fn, idx, blocks,
-                                            xb, inp["name"])
-                ms = timer(lambda: cuda_fn(*idx, blocks, xb))
+                check_nonfinite_pattern(name, cuda_fn, plain_fn, idx, count,
+                                        blocks, xb, inp["name"])
+                ms = timer(lambda: cuda_fn(*idx, blocks, xb, **count))
                 plain_ms = timer(lambda: plain_fn(*idx, blocks, xb),
                                  iters=5, warmup=1)
                 rhs = xt if multi else xt.unsqueeze(1)

@@ -40,9 +40,10 @@ def sparse_tensor_from_arrays(layout: str, meta: Mapping,
     ``meta`` holds the JAX ``SparseMeta`` fields (``layout``, ``shape``,
     ``block_size``, ``slice_height``, ``sigma``, ``schedule`` as a dict or
     None); ``arrays`` the leaves by name (``LAYOUT_FIELDS`` of the JAX
-    package, i.e. without the port's extra SELL ``cell_ptr``, which is
-    derived here). A ``true_shape`` entry in ``meta``, when given, is the
-    logical shape of a shape-bucketed container."""
+    package, i.e. without the port's extra SELL ``cell_ptr`` and
+    ``cell_valid``, which are derived here). A ``true_shape`` entry in
+    ``meta``, when given, is the logical shape of a shape-bucketed
+    container."""
     if layout not in LAYOUT_FIELDS:
         raise ValueError(f"unknown layout {layout!r}; one of "
                          f"{sorted(LAYOUT_FIELDS)}")
@@ -61,11 +62,11 @@ def sparse_tensor_from_arrays(layout: str, meta: Mapping,
                    a["blocks"], shape, int(meta["block_size"]))
     else:
         host = a["dense"]
+    zero = meta.get("zero_idx")
     st = SparseTensor.from_layout(host, schedule=_schedule(meta),
-                                  device=device)
+                                  device=device,
+                                  zero_idx=None if zero is None else int(zero))
     ts = meta.get("true_shape")
     if ts is not None:
         st.true_shape = (int(ts[0]), int(ts[1]))
-    if "zero_idx" in meta and meta["zero_idx"] is not None:
-        st._zero_idx = int(meta["zero_idx"])
     return st

@@ -11,7 +11,11 @@
 //   SELL: y[b, row_perm[b, r]] = sum_{t in cell_ptr[b, r] .. cell_ptr[b, r+1])
 //                                blocks[b, cell_block[b, t]] @ x[b, cell_col[b, t]]
 //   b is the member of a stacked bucket (B = 1 for a single plan); x is
-//   (n_bc, bs) for SpMV and (n_bc, bs, k) for SpMM, k a multiple of 8.
+//   (n_bc, bs) for SpMV and (n_bc, bs, k) for SpMM, k a multiple of 8. The
+//   host builds cell_ptr so that a member's last sorted row owns one of
+//   the bucket-pad cells (zero block, column 0) appended to its stream:
+//   the TPU kernel adds every one of them to that row, and they are all
+//   the same product.
 //
 // What bounds it on this card
 //   Bytes. Every stored tile is read once per RHS tile and used for
@@ -20,16 +24,21 @@
 //   ~20 FLOP/byte fp32 ridge (67 TFLOP/s over 3.35 TB/s). The least time is
 //   (blocks.nbytes + indices + x + y) / 3.35 TB/s.
 //
-// What the ELL SpMV design does about it (bsr_spmv_ell)
-//   One CTA owns one (block-row, strip of tile rows, member). The row's
-//   real slots lead it and valid_counts[b, r] says how many; the slots
-//   after them hold the all-zeros block and column 0 (the ELL container's
-//   pad). The TPU kernel multiplies every slot, so a pad slot adds
+// What the SpMV design does about it (bsr_spmv_ell, bsr_spmv_sell)
+//   One template, bsr_spmv_counted_kernel, for both layouts: only where a
+//   row's slots come from differs (ELL: row r of the slot table; SELL: the
+//   cells cell_ptr assigns to sorted row r, the result stored to
+//   row_perm[r]). One CTA owns one (row, strip of tile rows, member). The
+//   row's real slots lead it and a count (valid_counts for ELL, cell_valid
+//   for SELL) says how many; the slots after them hold the all-zeros block
+//   and column 0 (ELL pad slots, SELL slice-width and bucket-pad cells).
+//   The TPU kernel multiplies every slot, so a pad slot adds
 //   0 * x_blocks[0]: +0 for a finite x, NaN where x_blocks[0] holds an Inf
 //   or a NaN. The kernel sums the real slots and then exactly one pad
-//   slot, slot valid_counts[r] as it stands, when the row has one: every
-//   pad slot of a row is the same product, so this is the all-slot sum
-//   (up to the sign of an exact zero) while the dead tiles are never read.
+//   slot, the one right after them, when the row has one: every pad slot
+//   of a row is the same product, so this is the all-slot sum (up to the
+//   sign of an exact zero) while the dead tiles are never read. Rows that
+//   own no slot (SELL bucket-pad rows) write zeros.
 //   The row's slot indices are staged in shared memory in batches of 256
 //   before its slot loop, so no tile address waits on an index load. The
 //   strips (contiguous in the tile, at most kEllStrip floats) and their x
@@ -39,7 +48,7 @@
 //   each output row and are reduced with warp shuffles once, after the
 //   last slot.
 //
-// What the other three designs do
+// What the SpMM design does (bsr_spmm_ell, bsr_spmm_sell)
 //   One CTA per (block-row, RHS tile, member) loops over the row's slots
 //   (ELL) or cells (SELL), keeping its rows x KT fp32 sums in registers. No
 //   atomics, no second pass: every result is deterministic. When there are
@@ -52,9 +61,9 @@
 //   keeps up to 8 CTAs per SM in flight, which is what hides the load
 //   latency. Sums use CUDA-core fp32 FMAs (no TF32), matching the
 //   reference's fp32 accumulation. When one output needs fewer than 256
-//   threads (SpMV, small bs) the column sum is split over G lanes and
-//   reduced with warp shuffles once, after the last slot.
-//   SELL rows are located through a row pointer (cell_ptr, derived on the
+//   threads (small bs) the column sum is split over G lanes and reduced
+//   with warp shuffles once, after the last slot.
+//   SELL rows are located through the row pointer (cell_ptr, derived on the
 //   host from the nondecreasing cell_row), and each CTA writes its result
 //   straight to y[row_perm[r]]: the scatter the JAX path does afterwards is
 //   fused, and sorted rows that own no cells (bucket padding) write zeros.
@@ -188,7 +197,7 @@ int launch(const int* slot_block, const int* slot_col, const int* cell_ptr,
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------------ ELL SpMV
+// ------------------------------------------- ELL and SELL SpMV
 
 constexpr int kEllStages = 4;     // ring depth
 constexpr int kEllStrip = 2048;   // floats of one stage's A strip, at most
@@ -210,18 +219,24 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// CTA (r, strip, b) computes y[b, r, i0 : i0 + rb], i0 = strip * rows.
-// Shared memory: kEllStages stages of [rows x bs strip | bs x segment],
-// then one batch of kThreads slot indices (block, column).
+// CTA (r, strip, b) computes y[b, out_r, i0 : i0 + rb], i0 = strip * rows;
+// out_r = r (ELL) or row_perm[b, r] (SELL). Its slots: ELL row r of
+// member b, n_slots wide; SELL cells cell_ptr[b, r] .. cell_ptr[b, r+1] of
+// member b's stream of n_slots cells. Shared memory: kEllStages stages of
+// [rows x bs strip | bs x segment], then one batch of kThreads slot
+// indices (block, column).
+template <bool kSell>
 __global__ void __launch_bounds__(kThreads)
-bsr_spmv_ell_kernel(const int* __restrict__ idx,         // (B, n_br, mb)
-                    const int* __restrict__ cols,        // (B, n_br, mb)
-                    const int* __restrict__ valid,       // (B, n_br)
-                    const float* __restrict__ blocks,    // (B, nb, bs, bs)
-                    const float* __restrict__ x,         // (B, n_bc, bs)
-                    float* __restrict__ y,               // (B, n_br, bs)
-                    int n_br, int mb, long long nb, int bs, int n_bc,
-                    int rows, int g) {
+bsr_spmv_counted_kernel(const int* __restrict__ slot_block,  // ELL (B,n_br,mb) | SELL (B,n_cells)
+                        const int* __restrict__ slot_col,    // same shape
+                        const int* __restrict__ cell_ptr,    // SELL (B, n_br+1)
+                        const int* __restrict__ valid,       // (B, n_br)
+                        const int* __restrict__ row_perm,    // SELL (B, n_br)
+                        const float* __restrict__ blocks,    // (B, nb, bs, bs)
+                        const float* __restrict__ x,         // (B, n_bc, bs)
+                        float* __restrict__ y,               // (B, n_br, bs)
+                        int n_br, long long n_slots, long long nb, int bs,
+                        int n_bc, int rows, int g) {
   extern __shared__ __align__(16) float smem[];
   const int stage = rows * bs + bs;
   int* s_blk = reinterpret_cast<int*>(smem + kEllStages * stage);
@@ -231,8 +246,18 @@ bsr_spmv_ell_kernel(const int* __restrict__ idx,         // (B, n_br, mb)
   const int rb = min(rows, bs - i0);
   const long long b = blockIdx.z;
   const long long row = b * n_br + blockIdx.x;
-  const int n_real = min(max(valid[row], 0), mb);
-  const int n = n_real < mb ? n_real + 1 : mb;   // + one pad slot, if any
+  long long first;   // the row's first slot
+  int len;           // its slots
+  if (kSell) {
+    const int* ptr = cell_ptr + b * (n_br + 1) + blockIdx.x;
+    first = b * n_slots + ptr[0];
+    len = max(ptr[1] - ptr[0], 0);
+  } else {
+    first = row * n_slots;
+    len = (int)n_slots;
+  }
+  const int n_real = min(max(valid[row], 0), len);
+  const int n = n_real < len ? n_real + 1 : len;   // + one pad slot, if any
   const int q = bs / 4;                          // 16-byte vectors per row
   const int n_vec = rb * q;
   const long long tile = (long long)bs * bs;
@@ -248,8 +273,8 @@ bsr_spmv_ell_kernel(const int* __restrict__ idx,         // (B, n_br, mb)
     const int nn = min(kThreads, n - s0);
     __syncthreads();   // the last batch is summed and its indices unread
     if (t < nn) {
-      s_blk[t] = idx[row * mb + s0 + t];
-      s_col[t] = cols[row * mb + s0 + t];
+      s_blk[t] = slot_block[first + s0 + t];
+      s_col[t] = slot_col[first + s0 + t];
     }
     __syncthreads();
     auto produce = [&](int j) {   // slot s0 + j into stage j % kEllStages
@@ -293,7 +318,8 @@ bsr_spmv_ell_kernel(const int* __restrict__ idx,         // (B, n_br, mb)
   }
   cp_async_wait<0>();
 
-  float* y_r = y + row * bs + i0;
+  const long long out_r = kSell ? b * n_br + row_perm[row] : row;
+  float* y_r = y + out_r * bs + i0;
 #pragma unroll
   for (int u = 0; u < kEllRows; ++u) {
     float v = acc[u];
@@ -304,13 +330,18 @@ bsr_spmv_ell_kernel(const int* __restrict__ idx,         // (B, n_br, mb)
   }
 }
 
-int launch_spmv_ell(const int* idx, const int* cols, const int* valid,
-                    const float* blocks, const float* x, float* y,
-                    int n_members, int n_br, int mb, long long nb, int bs,
-                    int n_bc, int rows_per_cta, cudaStream_t stream) {
-  if (bs <= 0 || bs > 256 || bs % 4 != 0 || n_br <= 0 || mb < 0 ||
-      n_members <= 0 || n_members > 65535 || rows_per_cta <= 0 ||
-      rows_per_cta > bs || valid == nullptr)
+template <bool kSell>
+int launch_spmv_counted(const int* slot_block, const int* slot_col,
+                        const int* cell_ptr, const int* valid,
+                        const int* row_perm, const float* blocks,
+                        const float* x, float* y, int n_members, int n_br,
+                        long long n_slots, long long nb, int bs, int n_bc,
+                        int rows_per_cta, cudaStream_t stream) {
+  if (bs <= 0 || bs > 256 || bs % 4 != 0 || n_br <= 0 || n_slots < 0 ||
+      (!kSell && n_slots > 2147483647LL) || n_members <= 0 ||
+      n_members > 65535 || rows_per_cta <= 0 || rows_per_cta > bs ||
+      valid == nullptr || (kSell && (cell_ptr == nullptr ||
+                                     row_perm == nullptr)))
     return (int)cudaErrorInvalidValue;
   // g: the power of two up to 32 that a row's bs / 4 vectors fill; a
   // strip holds at most kEllStrip floats and kEllRows rows per thread
@@ -322,12 +353,13 @@ int launch_spmv_ell(const int* idx, const int* cols, const int* valid,
   const dim3 grid(n_br, n_split, n_members);
   const int shmem = (int)(sizeof(float) * kEllStages * (rows * bs + bs) +
                           sizeof(int) * 2 * kThreads);
+  auto kernel = bsr_spmv_counted_kernel<kSell>;
   const cudaError_t err = cudaFuncSetAttribute(
-      bsr_spmv_ell_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      shmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shmem);
   if (err != cudaSuccess) return (int)err;
-  bsr_spmv_ell_kernel<<<grid, kThreads, shmem, stream>>>(
-      idx, cols, valid, blocks, x, y, n_br, mb, nb, bs, n_bc, rows, g);
+  kernel<<<grid, kThreads, shmem, stream>>>(
+      slot_block, slot_col, cell_ptr, valid, row_perm, blocks, x, y, n_br,
+      n_slots, nb, bs, n_bc, rows, g);
   return (int)cudaGetLastError();
 }
 
@@ -342,8 +374,9 @@ int bsr_spmv_ell(const int* idx, const int* cols, const int* valid_counts,
                  const float* blocks, const float* x, float* y,
                  int n_members, int n_br, int mb, long long nb, int bs,
                  int n_bc, int rows_per_cta, cudaStream_t stream) {
-  return launch_spmv_ell(idx, cols, valid_counts, blocks, x, y, n_members,
-                         n_br, mb, nb, bs, n_bc, rows_per_cta, stream);
+  return launch_spmv_counted<false>(idx, cols, nullptr, valid_counts,
+                                    nullptr, blocks, x, y, n_members, n_br,
+                                    mb, nb, bs, n_bc, rows_per_cta, stream);
 }
 
 int bsr_spmm_ell(const int* idx, const int* cols, const float* blocks,
@@ -355,14 +388,17 @@ int bsr_spmm_ell(const int* idx, const int* cols, const float* blocks,
                           stream);
 }
 
+// cell_valid (n_members, n_br): the real cells that lead each sorted row.
 int bsr_spmv_sell(const int* cell_block, const int* cell_col,
-                  const int* cell_ptr, const int* row_perm,
-                  const float* blocks, const float* x, float* y,
-                  int n_members, int n_br, long long n_cells, long long nb,
-                  int bs, int n_bc, int rows_per_cta, cudaStream_t stream) {
-  return launch<true, 1>(cell_block, cell_col, cell_ptr, row_perm, blocks, x,
-                         y, n_members, n_br, n_cells, nb, bs, n_bc, 1,
-                         rows_per_cta, stream);
+                  const int* cell_ptr, const int* cell_valid,
+                  const int* row_perm, const float* blocks, const float* x,
+                  float* y, int n_members, int n_br, long long n_cells,
+                  long long nb, int bs, int n_bc, int rows_per_cta,
+                  cudaStream_t stream) {
+  return launch_spmv_counted<true>(cell_block, cell_col, cell_ptr,
+                                   cell_valid, row_perm, blocks, x, y,
+                                   n_members, n_br, n_cells, nb, bs, n_bc,
+                                   rows_per_cta, stream);
 }
 
 int bsr_spmm_sell(const int* cell_block, const int* cell_col,

@@ -17,8 +17,13 @@ is the all-slot sum the plain version and the TPU kernel compute. On CPU
 tensors it is checked and the plain version sums every slot.
 
 The SELL kernels take ``cell_ptr`` (the (n_br+1,) row pointer of the
-nondecreasing ``cell_row``) and ``row_perm`` and return rows in ORIGINAL
-order: the scatter through ``row_perm`` is fused into the kernel.
+nondecreasing ``cell_row``, which gives a member's last sorted row one of
+its bucket-pad cells, see ``ops.sell_row_ptr``) and ``row_perm`` and return
+rows in ORIGINAL order: the scatter through ``row_perm`` is fused into the
+kernel. The SELL SpMV kernel also takes ``cell_valid`` (the real cells that
+lead each sorted row, (n_br,) or (B, n_br) int32), a required keyword: it
+sums those cells and one more per row whose range is longer, which is the
+sum over the row's whole range that the plain version computes.
 """
 from __future__ import annotations
 
@@ -43,8 +48,8 @@ _ARGTYPES = {
                      _P],
     "bsr_spmm_ell": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _I,
                      _P],
-    "bsr_spmv_sell": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _I, _I,
-                      _I, _P],
+    "bsr_spmv_sell": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _I,
+                      _I, _I, _P],
     "bsr_spmm_sell": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _I, _I,
                       _I, _I, _P],
 }
@@ -149,15 +154,26 @@ def _ell(name: str, multi: bool, block_indices, block_cols, blocks,
 
 
 def _sell(name: str, multi: bool, cell_block, cell_col, cell_ptr, row_perm,
-          blocks, x_blocks):
+          blocks, x_blocks, cell_valid=None):
+    counted = not multi      # the SpMV kernel stops at cell_valid (+1)
+    if counted and (cell_valid.shape != row_perm.shape
+                    or cell_valid.dtype != torch.int32):
+        raise ValueError(f"{name}: cell_valid must be int32 of shape "
+                         f"{tuple(row_perm.shape)}, got {cell_valid.dtype} "
+                         f"{tuple(cell_valid.shape)}")
     if cell_block.device.type == "cpu":
         f = ref.ref_bsr_spmm_sell_perm if multi else ref.ref_bsr_spmv_sell_perm
         return f(cell_block, cell_col, cell_ptr, row_perm, blocks, x_blocks)
-    check_operands(name, {"cell_block": cell_block, "cell_col": cell_col,
-                          "cell_ptr": cell_ptr, "row_perm": row_perm,
-                          "blocks": blocks, "x_blocks": x_blocks},
-                   ints=("cell_block", "cell_col", "cell_ptr", "row_perm"),
-                   aligned=("blocks",))
+    operands = {"cell_block": cell_block, "cell_col": cell_col,
+                "cell_ptr": cell_ptr, "row_perm": row_perm, "blocks": blocks,
+                "x_blocks": x_blocks}
+    if counted:
+        operands["cell_valid"] = cell_valid
+    # the counted kernel also copies x segments 16 bytes at a time
+    check_operands(name, operands,
+                   ints=("cell_block", "cell_col", "cell_ptr", "row_perm",
+                         "cell_valid"),
+                   aligned=("blocks", "x_blocks") if counted else ("blocks",))
     stacked = cell_block.dim() == 2
     lead = 1 if stacked else 0
     if cell_block.dim() != lead + 1 or cell_col.shape != cell_block.shape \
@@ -178,9 +194,10 @@ def _sell(name: str, multi: bool, cell_block, cell_col, cell_ptr, row_perm,
     y = torch.empty(shape, dtype=torch.float32, device=blocks.device)
     if n_br == 0:
         return y
-    args = [cell_block.data_ptr(), cell_col.data_ptr(), cell_ptr.data_ptr(),
-            row_perm.data_ptr(), blocks.data_ptr(), x_blocks.data_ptr(),
-            y.data_ptr(), n_mem, n_br, n_cells, nb, bs, n_bc] + \
+    args = [cell_block.data_ptr(), cell_col.data_ptr(), cell_ptr.data_ptr()] \
+        + ([cell_valid.data_ptr()] if counted else []) + \
+        [row_perm.data_ptr(), blocks.data_ptr(), x_blocks.data_ptr(),
+         y.data_ptr(), n_mem, n_br, n_cells, nb, bs, n_bc] + \
         ([k] if multi else []) + \
         [rows_per_cta(bs, n_br * (k // RHS_TILE if multi else 1) * n_mem),
          _stream(blocks.device)]
@@ -206,12 +223,13 @@ def bsr_spmm_cuda(block_indices, block_cols, blocks, x_blocks):
 
 
 def bsr_spmv_sell_cuda(cell_block, cell_col, cell_ptr, row_perm, blocks,
-                       x_blocks):
-    """y = A @ x, A in SELL-BSR, rows in original order -> (n_br, bs).
-    Replaces ``bsr_spmv_sell_pallas`` and the ``row_perm`` scatter after
-    it."""
+                       x_blocks, *, cell_valid):
+    """y = A @ x, A in SELL-BSR, rows in original order -> (n_br, bs);
+    ``cell_valid`` (n_br,) int32 is the real cells that lead each sorted
+    row. Replaces ``bsr_spmv_sell_pallas`` and the ``row_perm`` scatter
+    after it."""
     return _sell("bsr_spmv_sell", False, cell_block, cell_col, cell_ptr,
-                 row_perm, blocks, x_blocks)
+                 row_perm, blocks, x_blocks, cell_valid)
 
 
 def bsr_spmm_sell_cuda(cell_block, cell_col, cell_ptr, row_perm, blocks,

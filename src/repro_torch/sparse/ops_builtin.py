@@ -46,7 +46,7 @@ from ..kernels.bsr_spgemm.ops import (spgemm_cell_ptr, spgemm_symbolic,
                                       spgemm_symbolic_cells)
 from ..kernels.bsr_spmv import kernel as K
 from ..kernels.bsr_spmv import ref as R
-from ..kernels.bsr_spmv.ops import sell_cell_ptr
+from ..kernels.bsr_spmv.ops import sell_cell_valid, sell_row_ptr
 from ..kernels.flash_attention import kernel as FK
 from ..kernels.flash_attention import ref as FR
 from ..kernels.moe_gmm import kernel as MK
@@ -70,7 +70,8 @@ RHS_TILE = K.RHS_TILE
 _MATVEC_FNS = {
     ("ell", False): (K.bsr_spmv_cuda, R.ref_bsr_spmv, "valid_counts"),
     ("ell", True): (K.bsr_spmm_cuda, R.ref_bsr_spmm, None),
-    ("sell", False): (K.bsr_spmv_sell_cuda, R.ref_bsr_spmv_sell_perm, None),
+    ("sell", False): (K.bsr_spmv_sell_cuda, R.ref_bsr_spmv_sell_perm,
+                      "cell_valid"),
     ("sell", True): (K.bsr_spmm_sell_cuda, R.ref_bsr_spmm_sell_perm, None),
 }
 _LAYOUT_ARGS = {
@@ -149,7 +150,7 @@ def _plan_matvec(operands, schedule: Optional[Schedule], backend: str, *,
                  max_blocks: Optional[int] = None,
                  store: Optional[PreparedStore] = None,
                  shape_bucket: bool = True,
-                 operand_key: Optional[str] = None, **_) -> Plan:
+                 operand_key: Optional[str] = None) -> Plan:
     (a,) = operands
     if isinstance(a, CSR):
         lay = None if layout == "ell" else layout
@@ -285,8 +286,9 @@ def _stack_resident(sts: List, shape_bucket: bool):
     containers (pad to common edge dims + ``torch.stack``). Pad fills
     mirror ``_build_matvec_bucket``: extra ell/sell cells point at the
     member's own all-zeros block, ``cell_row`` extends the last sorted row,
-    ``row_perm`` extends with identity, and ``cell_ptr`` keeps the member's
-    own row ranges (extra rows empty)."""
+    ``row_perm`` extends with identity, ``cell_ptr`` gives the member's last
+    row one pad cell past its live cells (extra rows own none) and
+    ``cell_valid`` is the member's own (extra rows 0)."""
     layout = sts[0].layout
     shapes = [st.true_shape for st in sts]
     if layout == "dense":
@@ -334,14 +336,21 @@ def _stack_resident(sts: List, shape_bucket: bool):
             cb.append(_pad_to(a["cell_block"], (n_cells,), zero))
             # pad cells extend the member's LAST sorted row
             last = int(a["cell_row"][-1]) if a["cell_row"].shape[0] else 0
-            cr.append(_pad_to(a["cell_row"], (n_cells,), last))
+            row = _pad_to(a["cell_row"], (n_cells,), last)
+            cr.append(row)
             perm = a["row_perm"]
             rp.append(torch.cat([perm, torch.arange(
                 perm.shape[0], n_br, dtype=perm.dtype, device=perm.device)]))
-            # the member's own row pointer; extra rows own no cells, and the
-            # pad cells past its end belong to no row
+            # the member's own pointer, extra rows empty; when the stack
+            # first pads this member past its cells, its last row takes one
+            # of the pad cells (as ``sell_row_ptr`` gives it)
             p = a["cell_ptr"]
-            ptr.append(_pad_to(p, (n_br + 1,), int(p[-1])))
+            p = torch.cat([p, p[-1:].expand(n_br + 1 - p.shape[0])])
+            own = a["cell_block"].shape[0]
+            if n_cells > own and (st._live_cells is None
+                                  or st._live_cells >= own):
+                p[last + 1:] += 1
+            ptr.append(p)
         arrays = {
             "cell_block": torch.stack(cb),
             "cell_col": torch.stack([_pad_to(a["cell_col"], (n_cells,))
@@ -349,6 +358,8 @@ def _stack_resident(sts: List, shape_bucket: bool):
             "cell_row": torch.stack(cr),
             "row_perm": torch.stack(rp),
             "cell_ptr": torch.stack(ptr),
+            "cell_valid": torch.stack([_pad_to(a["cell_valid"], (n_br,))
+                                       for a in A]),
             "blocks": blocks}
     return {"arrays": arrays, "shapes": shapes, "layout": layout,
             "bs": bs, "width": int(n_bc * bs)}
@@ -433,29 +444,32 @@ def _build_matvec_bucket(members: List, schedule: Schedule, sigma: int,
             n_br = max(h.n_block_rows for h in hosts)
             if shape_bucket:
                 n_br = bucket_edge(n_br)
-            # each member's row pointer over its own live cells (a
-            # SparseTensor member's excludes its bucket pad cells); pad
-            # cells past it belong to no row
-            ptrs = [m.arrays["cell_ptr"].cpu().numpy()
-                    if isinstance(m, SparseTensor)
-                    else sell_cell_ptr(h.cell_row, h.n_block_rows)
-                    for m, h in zip(members, hosts)]
-            # pad cells extend the member's LAST sorted row (+0 from the
-            # zero block), keeping cell_row nondecreasing as in the JAX
-            # container
+            # pad cells extend the member's LAST sorted row (the zero block
+            # times x_blocks[0]), keeping cell_row nondecreasing as in the
+            # JAX container
             cell_row = _stack_pad(
                 [h.cell_row for h in hosts],
                 [int(h.cell_row[-1]) if h.cell_row.size else 0
                  for h in hosts], edge_dims=ed)
+            cell_block = _stack_pad([h.cell_block for h in hosts], zero_idx,
+                                    edge_dims=ed)
+            # each member's live cells (a SparseTensor member's exclude its
+            # own bucket pad cells) and one pad cell past them for its last
+            # row; the stack's extra rows own no cells
+            lives = [m._live_cells if isinstance(m, SparseTensor)
+                     and m._live_cells is not None else h.n_cells
+                     for m, h in zip(members, hosts)]
+            ptr = np.stack([sell_row_ptr(r, n_br, live)
+                            for r, live in zip(cell_row, lives)])
             arrays = {
-                "cell_block": put(_stack_pad(
-                    [h.cell_block for h in hosts], zero_idx, edge_dims=ed)),
+                "cell_block": put(cell_block),
                 "cell_col": put(_stack_pad(
                     [h.cell_col for h in hosts], 0, edge_dims=ed)),
                 "cell_row": put(cell_row),
-                "cell_ptr": put(np.stack([
-                    np.pad(p, (0, n_br + 1 - p.size), mode="edge")
-                    for p in ptrs])),
+                "cell_ptr": put(ptr),
+                "cell_valid": put(np.stack([
+                    sell_cell_valid(c, p, z)
+                    for c, p, z in zip(cell_block, ptr, zero_idx)])),
                 # identity-extend each member's permutation so padded sorted
                 # rows scatter onto padded (sliced-away) output rows
                 "row_perm": put(np.stack([
@@ -525,8 +539,8 @@ def _pad_member_axis(built: Dict, b_pad: int) -> Dict:
     """Pad the stacked member axis up to ``b_pad`` with zero members, so
     every occupancy in (prev_edge, b_pad] has the same stacked shapes. A
     zero member's indices are in range (0), its RHS is zeroed by the launch
-    wrapper and its ``cell_ptr`` gives every row an empty range, so its
-    output is exactly zero and sliced away; its ``row_perm`` is the
+    wrapper and its ``cell_ptr`` gives every row an empty range (its
+    ``cell_valid`` is 0), so its output is exactly zero and sliced away; its ``row_perm`` is the
     identity, so every output row is still written once."""
     arrays = {}
     for k, v in built["arrays"].items():
@@ -548,7 +562,7 @@ def _plan_matvec_bucket(members: List, schedule: Schedule, backend: str, *,
                         sigma: int = SELL_SIGMA,
                         store: Optional[PreparedStore] = None,
                         shape_bucket: bool = True,
-                        member_keys=None, **_) -> Plan:
+                        member_keys=None) -> Plan:
     if (store is not None and member_keys is not None
             and all(member_keys) and len(set(member_keys)) == 1
             and all(isinstance(m, CSR) for m in members)):
@@ -825,7 +839,7 @@ def _plan_spgemm(operands, schedule: Optional[Schedule], backend: str, *,
                  device: torch.device, block_size: int = 128,
                  store: Optional[PreparedStore] = None,
                  shape_bucket: bool = True,
-                 operand_key: Optional[str] = None, **_) -> Plan:
+                 operand_key: Optional[str] = None) -> Plan:
     a, b = operands
     if schedule is None:
         schedule = Schedule("bsr", block_size, 1.0)
@@ -873,7 +887,7 @@ def _plan_spgemm_bucket(members: List, schedule: Schedule, backend: str, *,
                         device: torch.device,
                         store: Optional[PreparedStore] = None,
                         shape_bucket: bool = True,
-                        member_keys=None, **_) -> Plan:
+                        member_keys=None) -> Plan:
     """ONE stacked launch for a same-schedule spgemm bucket: per-member
     symbolic products are padded to common (edge-rounded) shapes, stacked
     along a member axis, and the numeric phase runs as a single kernel
@@ -995,7 +1009,7 @@ def _plan_spadd(operands, schedule: Optional[Schedule], backend: str, *,
                 device: torch.device, block_size: int = 128,
                 store: Optional[PreparedStore] = None,
                 shape_bucket: bool = True,
-                operand_key: Optional[str] = None, **_) -> Plan:
+                operand_key: Optional[str] = None) -> Plan:
     a, b = operands
     if schedule is None:
         schedule = Schedule("bsr", block_size, 1.0)
@@ -1013,7 +1027,7 @@ def _plan_spadd_bucket(members: List, schedule: Schedule, backend: str, *,
                        device: torch.device,
                        store: Optional[PreparedStore] = None,
                        shape_bucket: bool = True,
-                       member_keys=None, **_) -> Plan:
+                       member_keys=None) -> Plan:
     """ONE stacked launch for a same-schedule spadd bucket."""
     if schedule.backend == "dense":
         raise ValueError("dense schedules have no BSR path")
@@ -1065,7 +1079,7 @@ def _as_operand(x, device: torch.device) -> torch.Tensor:
 def _plan_moe(operands, schedule: Optional[Schedule], backend: str, *,
               device: torch.device, tile_m: Optional[int] = None,
               tile_n: int = 128, tile_k: int = 128,
-              store: Optional[PreparedStore] = None, **_) -> Plan:
+              store: Optional[PreparedStore] = None) -> Plan:
     (tile_expert,) = operands
     tm = tile_m if tile_m is not None else (
         schedule.block_size if schedule is not None else 128)
@@ -1125,7 +1139,7 @@ def moe_tile_schedule(tokens_per_expert, d_model: int, platform,
 
 def _plan_flash(operands, schedule: Optional[Schedule], backend: str, *,
                 device: torch.device, causal: bool = True,
-                block_q: int = 128, block_k: int = 128, **_) -> Plan:
+                block_q: int = 128, block_k: int = 128) -> Plan:
     if operands not in ((), None):
         raise ValueError("flash_attention takes no planned operands; pass "
                          "q, k, v to execute()")

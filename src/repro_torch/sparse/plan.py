@@ -108,17 +108,33 @@ class Plan:
                 f"via {self.source}{extra}")
 
 
+def _refuse_unported(selector, executor) -> None:
+    """``selector=`` and ``executor=`` come with later slices of the port;
+    until then they raise instead of being dropped."""
+    if executor is not None:
+        raise TypeError("executor= (GuardedExecutor) is not ported yet: it "
+                        "comes with ROADMAP Queue A item 1, guarded "
+                        "execution")
+    if selector is not None:
+        raise TypeError("selector= is not ported yet: it comes with ROADMAP "
+                        "Queue A item 2, the selector service")
+
+
 def plan(op: str, operands, schedule: Optional[Schedule] = None,
          backend: str = "auto", store: Optional[PreparedStore] = None,
-         device="cuda", **op_kwargs) -> Plan:
+         device="cuda", *, selector=None, executor=None,
+         **op_kwargs) -> Plan:
     """Build an executable ``Plan`` for a registered sparse op on
     ``device`` (the card unless ``device="cpu"``).
 
     ``schedule`` names the layout and block size; without one the op
     planner's defaults apply. ``store`` is a ``PreparedStore``: repeat
     traffic for the same (matrix bytes, schedule, device) reuses the
-    finished device operands and skips host prep.
+    finished device operands and skips host prep. ``selector`` and
+    ``executor`` raise ``TypeError`` (not ported yet), as does any keyword
+    the op's planner does not take.
     """
+    _refuse_unported(selector, executor)
     spec = get_op(op)
     if not isinstance(operands, tuple):
         operands = (operands,)
@@ -153,8 +169,8 @@ def _member_layout(m) -> Optional[str]:
 
 def plan_bucket(op: str, operands: Sequence, schedule: Schedule,
                 backend: str = "auto",
-                store: Optional[PreparedStore] = None, device="cuda",
-                **op_kwargs) -> Plan:
+                store: Optional[PreparedStore] = None, device="cuda", *,
+                selector=None, executor=None, **op_kwargs) -> Plan:
     """ONE launch for a whole same-schedule bucket.
 
     ``operands`` is a list of per-member operands (CSR or prepared; an
@@ -162,8 +178,10 @@ def plan_bucket(op: str, operands: Sequence, schedule: Schedule,
     the matching list of runtime inputs (none for spgemm/spadd) and
     returns the per-member outputs. Every member is validated against the
     bucket's shared Schedule up front, so a mixed bucket fails here with a
-    per-member error.
+    per-member error. ``selector`` and ``executor`` raise ``TypeError``
+    (not ported yet), as does any keyword the bucket planner does not take.
     """
+    _refuse_unported(selector, executor)
     spec = get_op(op)
     if spec.bucket_planner is None:
         raise ValueError(f"op {op!r} has no stacked bucket launch")

@@ -5,7 +5,8 @@ One class wraps every prepared layout the kernels consume:
 
   ell    globally padded ELL-BSR (``core.csr.ELLBSR``)
   sell   sliced SELL-BSR cell schedule (``core.csr.SELLBSR``) plus its row
-         pointer ``cell_ptr`` (what the SELL CUDA kernels walk)
+         pointer ``cell_ptr`` (what the SELL CUDA kernels walk) and
+         ``cell_valid``, the real cells that lead each sorted row
   bsr    raw blocked rows (``core.csr.BSR``): spgemm/spadd operands, whose
          symbolic phase is host-side, and the C they return
   dense  the dense-schedule escape hatch (density above the tuner's
@@ -29,18 +30,18 @@ import torch
 
 from ..core.autotune import SELL_SIGMA, Schedule
 from ..core.csr import BSR, CSR, ELLBSR, SELLBSR, ell_block_cap
-from ..kernels.bsr_spmv.ops import sell_cell_ptr
+from ..kernels.bsr_spmv.ops import sell_cell_valid, sell_row_ptr
 from ..kernels.common import resolve_device
 from .prepared import bucket_edge
 
 HostLayout = Union[ELLBSR, SELLBSR, BSR, np.ndarray]
 
 # Device tensor names per layout. The JAX container's leaves, in its
-# flatten order; SELL adds ``cell_ptr`` at the end.
+# flatten order; SELL adds ``cell_ptr`` and ``cell_valid`` at the end.
 LAYOUT_FIELDS: Dict[str, Tuple[str, ...]] = {
     "ell": ("block_indices", "block_cols", "blocks", "valid_counts"),
     "sell": ("cell_block", "cell_col", "cell_row", "row_perm",
-             "slice_widths", "blocks", "cell_ptr"),
+             "slice_widths", "blocks", "cell_ptr", "cell_valid"),
     "bsr": ("block_ptrs", "block_cols", "blocks"),
     "dense": ("dense",),
 }
@@ -82,6 +83,8 @@ class SparseTensor:
         # so ``from_csr`` records it pre-pad; ``blocks.shape[0] - 1`` is
         # only correct for unbucketed containers.
         self._zero_idx: Optional[int] = None
+        # SELL: the leading cells that are not bucket padding (None: all).
+        self._live_cells: Optional[int] = None
 
     # ------------------------------------------------------------- basics
     @property
@@ -168,20 +171,23 @@ class SparseTensor:
         if shape_bucket:
             container = pad_container_to_bucket(container)
         st = cls.from_layout(container, schedule=schedule, device=dev,
-                             live_cells=live_cells)
+                             live_cells=live_cells, zero_idx=zero_idx)
         st.true_shape = (int(csr.shape[0]), int(csr.shape[1]))
-        st._zero_idx = zero_idx
         return st
 
     @classmethod
     def from_layout(cls, container: HostLayout,
                     schedule: Optional[Schedule] = None,
                     device="cuda",
-                    live_cells: Optional[int] = None) -> "SparseTensor":
+                    live_cells: Optional[int] = None,
+                    zero_idx: Optional[int] = None) -> "SparseTensor":
         """Wrap an existing host container (ELLBSR/SELLBSR/BSR/dense).
-        ``live_cells`` is how many leading SELL cells ``cell_ptr`` assigns
-        to rows (default all; a shape-bucketed container passes its
-        pre-pad count, see ``sell_cell_ptr``)."""
+        ``live_cells`` is how many leading SELL cells are not bucket
+        padding (default all; a shape-bucketed container passes its pre-pad
+        count: ``cell_ptr`` gives its last row one pad cell, see
+        ``sell_row_ptr``). ``zero_idx`` is the index of the all-zeros block
+        the pad slots and cells point at (default the last block, right for
+        unbucketed containers only)."""
         dev = resolve_device(device)
 
         def put(a, dtype):
@@ -203,7 +209,9 @@ class SparseTensor:
                 "blocks": put(container.blocks, f32),
                 "valid_counts": put(container.valid_counts, i32),
             }
-            return cls(meta, arrays, host=container)
+            st = cls(meta, arrays, host=container)
+            st._zero_idx = zero_idx
+            return st
         if isinstance(container, SELLBSR):
             if schedule is None:
                 schedule = Schedule("bsr", container.block_size, 1.0,
@@ -213,6 +221,10 @@ class SparseTensor:
                               n_block_rows=container.n_block_rows,
                               slice_height=container.slice_height,
                               sigma=container.sigma, schedule=schedule)
+            ptr = sell_row_ptr(container.cell_row, container.n_block_rows,
+                               live_cells)
+            zero = (zero_idx if zero_idx is not None
+                    else container.blocks.shape[0] - 1)
             arrays = {
                 "cell_block": put(container.cell_block, i32),
                 "cell_col": put(container.cell_col, i32),
@@ -220,11 +232,14 @@ class SparseTensor:
                 "row_perm": put(container.row_perm, i32),
                 "slice_widths": put(container.slice_widths, i32),
                 "blocks": put(container.blocks, f32),
-                "cell_ptr": put(sell_cell_ptr(container.cell_row,
-                                              container.n_block_rows,
-                                              live_cells), i32),
+                "cell_ptr": put(ptr, i32),
+                "cell_valid": put(sell_cell_valid(container.cell_block, ptr,
+                                                  zero), i32),
             }
-            return cls(meta, arrays, host=container)
+            st = cls(meta, arrays, host=container)
+            st._live_cells = live_cells
+            st._zero_idx = zero_idx
+            return st
         if isinstance(container, BSR):
             if schedule is None:
                 schedule = Schedule("bsr", container.block_size, 1.0)
@@ -311,9 +326,10 @@ def _pad_sell_to_bucket(sell: SELLBSR) -> SELLBSR:
     """Pad a SELL container (cells, block-rows, block count, block-columns)
     up to bucket edges. Pad cells extend the LAST sorted row with zero-block
     contributions, keeping ``cell_row`` nondecreasing (the JAX container's
-    contract; ``from_csr`` leaves them out of ``cell_ptr``); ``row_perm`` is
-    identity-extended so padded sorted rows, which own no cells, write zeros
-    onto padded (sliced-away) output rows."""
+    contract; ``from_csr`` gives the last row one of them in ``cell_ptr``,
+    see ``sell_row_ptr``); ``row_perm`` is identity-extended so padded
+    sorted rows, which own no cells, write zeros onto padded (sliced-away)
+    output rows."""
     n_cells, n_br = sell.n_cells, sell.n_block_rows
     nb = sell.blocks.shape[0]           # includes the trailing zero block
     bs = sell.block_size

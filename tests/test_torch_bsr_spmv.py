@@ -24,6 +24,7 @@ from repro.kernels.bsr_spmv import kernel as jk
 from repro.kernels.bsr_spmv import ref as jref
 from repro.sparse import SparseTensor as JSparseTensor
 from repro.sparse import plan as jplan
+from repro.sparse import plan_bucket as jplan_bucket
 from repro.sparse.resilience import GuardedExecutor
 from repro.core.autotune import Schedule as JSchedule
 from repro_torch.core import (BSR, CSR, ELLBSR, SELLBSR, Schedule,
@@ -33,7 +34,8 @@ from repro_torch.kernels import common
 from repro_torch.kernels.bsr_spmv import kernel as K
 from repro_torch.kernels.bsr_spgemm import kernel as GK
 from repro_torch.kernels.bsr_spmv import ops, ref
-from repro_torch.sparse import PreparedStore, SparseTensor, content_key, plan
+from repro_torch.sparse import (PreparedStore, SparseTensor, content_key,
+                                plan, plan_bucket)
 from repro_torch.sparse.ops_builtin import (_build_matvec_bucket,
                                            _pad_member_axis, _stack_resident,
                                            _member_tensors)
@@ -100,9 +102,11 @@ def test_sell_plain_matches_jax_ref_and_interpret(n, bs, C, sigma, multi):
     rng = np.random.default_rng(n + bs)
     x = rng.standard_normal((n, K_ODD) if multi else n).astype(np.float32)
     xb = _x_blocks(x, -(-n // bs), bs)
-    cb, cc, ptr, perm, blocks = ops.sell_device_arrays(sell, device="cpu")
-    wrapper = K.bsr_spmm_sell_cuda if multi else K.bsr_spmv_sell_cuda
-    y = wrapper(cb, cc, ptr, perm, blocks, _t(xb)).numpy()
+    cb, cc, ptr, perm, blocks, cv = ops.sell_device_arrays(sell,
+                                                           device="cpu")
+    y = (K.bsr_spmm_sell_cuda(cb, cc, ptr, perm, blocks, _t(xb)) if multi
+         else K.bsr_spmv_sell_cuda(cb, cc, ptr, perm, blocks, _t(xb),
+                                   cell_valid=cv)).numpy()
     jargs = (jnp.asarray(sell.cell_block), jnp.asarray(sell.cell_col),
              jnp.asarray(sell.cell_row), jnp.asarray(sell.blocks),
              jnp.asarray(xb))
@@ -160,14 +164,13 @@ def test_stacked_members_equal_per_member(layout, multi):
     fn = {("ell", False): K.bsr_spmv_cuda, ("ell", True): K.bsr_spmm_cuda,
           ("sell", False): K.bsr_spmv_sell_cuda,
           ("sell", True): K.bsr_spmm_sell_cuda}[(layout, multi)]
-    counted = (layout, multi) == ("ell", False)
+    count = None if multi else ("valid_counts" if layout == "ell"
+                                else "cell_valid")
     stacked = fn(*(arrs[n] for n in names), arrs["blocks"], _t(xs),
-                 **({"valid_counts": arrs["valid_counts"]} if counted
-                    else {}))
+                 **({count: arrs[count]} if count else {}))
     for b in range(4):
         one = fn(*(arrs[n][b] for n in names), arrs["blocks"][b],
-                 _t(xs[b]), **({"valid_counts": arrs["valid_counts"][b]}
-                               if counted else {}))
+                 _t(xs[b]), **({count: arrs[count][b]} if count else {}))
         np.testing.assert_array_equal(stacked[b].numpy(), one.numpy())
     assert not stacked[3].any()                   # the zero member
     for b, m in enumerate(mats):
@@ -283,6 +286,226 @@ def test_plan_spmv_ell_nonfinite_x_matches_jax(bad, where):
     np.testing.assert_allclose(y[fin], jy[fin], rtol=2e-5, atol=2e-5)
 
 
+# ------------------- SELL: the bucket-pad cells of a member's last row
+
+SELL_NF = (Schedule("bsr", 16, 1.0, layout="sell", slice_height=4),
+           JSchedule("bsr", 16, 1.0, layout="sell", slice_height=4))
+
+
+def _diag_csr(n, bs, seed):
+    """One dense diagonal block per block-row: every SELL slice is one cell
+    wide, so no cell is a slice-width pad and only the bucket-pad cells
+    read x_blocks[0] outside block-row 0."""
+    rng = np.random.default_rng(seed)
+    d = np.zeros((n, n), np.float32)
+    for r in range(0, n, bs):
+        d[r:r + bs, r:r + bs] = rng.standard_normal((min(bs, n - r),) * 2)
+    return CSR.from_dense(d)
+
+
+def _jcsr(csr):
+    return JCSR(csr.row_ptrs, csr.col_idxs, csr.nnz_vals, csr.shape)
+
+
+def _bad_x(n, op, bad, col, seed):
+    x = np.random.default_rng(seed).standard_normal(
+        (n, 3) if op == "spmm" else n).astype(np.float32)
+    x[col] = bad
+    return x
+
+
+def _assert_nonfinite_equal(y, jy):
+    """The JAX facade's NaN and Inf pattern, its infinities, and its finite
+    rest within 2e-5."""
+    np.testing.assert_array_equal(np.isnan(y), np.isnan(jy))
+    np.testing.assert_array_equal(np.isinf(y), np.isinf(jy))
+    np.testing.assert_array_equal(y[np.isinf(jy)], jy[np.isinf(jy)])
+    fin = np.isfinite(jy)
+    np.testing.assert_allclose(y[fin], jy[fin], rtol=2e-5, atol=2e-5)
+
+
+def _bad_block_rows(y, bs):
+    """The block-rows that hold a non-finite output."""
+    rows = ~np.isfinite(y.reshape(y.shape[0], -1)).all(1)
+    return set(np.nonzero(rows)[0] // bs)
+
+
+@pytest.mark.parametrize("op", ["spmv", "spmm"])
+@pytest.mark.parametrize("bad", [np.nan, np.inf])
+@pytest.mark.parametrize("where", ["first_block", "real_column"])
+def test_plan_sell_nonfinite_x_matches_jax(op, bad, where):
+    """A NaN or an Inf in x[0:bs] or in a real column, through a single
+    shape-bucketed SELL plan: 13 cells padded to 16, the pad cells (zero
+    block, column 0) on the last sorted row. The JAX facade sums them into
+    that row, so x[3] makes block-rows 0 and 12 non-finite; the port gives
+    the same pattern. (The JAX plan runs without its NaN guard, which would
+    serve a dense fallback.)"""
+    n, bs = 208, 16
+    csr = _diag_csr(n, bs, 0)
+    x = _bad_x(n, op, bad, 3 if where == "first_block" else 5 * bs + 2, 1)
+    st = SparseTensor.from_csr(csr, SELL_NF[0], shape_bucket=True,
+                               device="cpu")
+    assert st.arrays["cell_block"].shape[0] == 16 > int(csr.shape[0]) // bs
+    y = plan(op, (st,), device="cpu").execute(x).numpy()
+    jy = np.asarray(jplan(op, (_jcsr(csr),), schedule=SELL_NF[1],
+                          backend="jnp",
+                          executor=GuardedExecutor(nan_guard=False)
+                          ).execute(x))
+    _assert_nonfinite_equal(y, jy)
+    assert _bad_block_rows(y, bs) == ({0, 12} if where == "first_block"
+                                      else {5})
+    y2 = plan(op, (csr,), schedule=SELL_NF[0], device="cpu").execute(x)
+    np.testing.assert_array_equal(y2.numpy(), y)
+
+
+@pytest.mark.parametrize("op", ["spmv", "spmm"])
+@pytest.mark.parametrize("bad", [np.nan, np.inf])
+@pytest.mark.parametrize("resident", [False, True])
+def test_plan_bucket_sell_nonfinite_x_matches_jax(op, bad, resident):
+    """A two-member SELL bucket, stacked from host containers or from the
+    members' resident tensors: 13 and 12 cells stacked to 16, so each
+    member's stream is padded past its live cells (the second only by the
+    stack) and the pad cells reach its last sorted row. x[3] in each member
+    gives the JAX bucket's NaN/Inf pattern: its block-row 0 and its last."""
+    bs = 16
+    mats = [_diag_csr(208, bs, 0), _diag_csr(192, bs, 1)]
+    xs = [_bad_x(m.shape[1], op, bad, 3, 2 + i) for i, m in enumerate(mats)]
+    kw = (dict(store=PreparedStore(), member_keys=[content_key(m)
+                                                   for m in mats])
+          if resident else {})
+    ys = plan_bucket(op, mats, SELL_NF[0], device="cpu", **kw).execute(xs)
+    jys = jplan_bucket(op, [_jcsr(m) for m in mats], SELL_NF[1],
+                       backend="jnp",
+                       executor=GuardedExecutor(nan_guard=False)).execute(xs)
+    for y, jy, m in zip(ys, jys, mats):
+        y, jy = y.numpy(), np.asarray(jy)
+        _assert_nonfinite_equal(y, jy)
+        assert _bad_block_rows(y, bs) == {0, m.shape[0] // bs - 1}
+
+
+def _assert_real_cells_lead(cb, ptr, valid, zero):
+    """Row r's cells under ``ptr`` start with ``valid[r]`` real ones and
+    hold no other real cell."""
+    assert valid.dtype == np.int32 and valid.shape == (ptr.size - 1,)
+    for r in range(ptr.size - 1):
+        cells = cb[ptr[r]:ptr[r + 1]]
+        assert valid[r] == np.count_nonzero(cells != zero)
+        assert (cells[:valid[r]] != zero).all()
+
+
+@pytest.mark.parametrize("shape_bucket", [False, True])
+@pytest.mark.parametrize("n,bs,C", [(100, 16, 2), (257, 32, 4),
+                                    (300, 64, 8)])
+def test_cell_valid_counts_the_real_cells_that_lead_each_row(n, bs, C,
+                                                             shape_bucket):
+    st = SparseTensor.from_csr(gen_zipf(n, seed=n), block_size=bs,
+                               layout="sell", slice_height=C,
+                               shape_bucket=shape_bucket, device="cpu")
+    a = {k: v.numpy() for k, v in st.arrays.items()}
+    _assert_real_cells_lead(a["cell_block"], a["cell_ptr"], a["cell_valid"],
+                            st._zero_idx)
+    assert a["cell_valid"].sum() == np.count_nonzero(
+        a["cell_block"] != st._zero_idx)
+
+
+@pytest.mark.parametrize("resident", [False, True])
+@pytest.mark.parametrize("shape_bucket", [False, True])
+def test_bucket_cell_valid_and_pointer_are_per_member(resident,
+                                                      shape_bucket):
+    """Stacked SELL buckets of unequal members: member b's counts mark its
+    real cells against its own zero block (its pad rows own none), its
+    pointer gives its last row exactly one pad cell when the stack pads
+    past its live cells, and the padded zero members own nothing."""
+    bs = 16
+    mats = [gen_zipf(n, seed=n) for n in (120, 90, 64)]
+    sched = Schedule("bsr", bs, 1.0, layout="sell", slice_height=2)
+    dev = torch.device("cpu")
+    if resident:
+        sts = _member_tensors(mats, sched, 4, shape_bucket,
+                              PreparedStore(), [content_key(m) for m in mats],
+                              dev)
+        built = _stack_resident(sts, shape_bucket)
+    else:
+        built = _build_matvec_bucket(mats, sched, 4, shape_bucket, dev)
+    arrs = {k: v.numpy() for k, v in _pad_member_axis(built, 4)["arrays"]
+            .items()}
+    cv, ptr, cb = arrs["cell_valid"], arrs["cell_ptr"], arrs["cell_block"]
+    assert cv.shape == arrs["row_perm"].shape
+    for b, m in enumerate(mats):
+        sell = SELLBSR.from_bsr(BSR.from_csr(m, bs), 2, 4)
+        zero = sell.blocks.shape[0] - 1
+        _assert_real_cells_lead(cb[b], ptr[b], cv[b], zero)
+        last = sell.n_block_rows - 1
+        live = sell.n_cells
+        assert ptr[b, last + 1] == live + (1 if cb.shape[1] > live else 0)
+        assert (ptr[b, last + 1:] == ptr[b, last + 1]).all()
+        assert not cv[b, sell.n_block_rows:].any()
+    assert not cv[3].any() and not ptr[3].any()   # the zero member
+
+
+def test_spmv_sell_wrapper_needs_its_cell_valid():
+    """The count is required, on CPU tensors as on the card, and must have
+    the sorted rows' shape and int32."""
+    sell = SELLBSR.from_bsr(BSR.from_csr(gen_zipf(64, seed=1), 16), 2, 4)
+    *args, cv = ops.sell_device_arrays(sell, device="cpu")
+    xb = torch.zeros((4, 16))
+    with pytest.raises(TypeError, match="cell_valid"):
+        K.bsr_spmv_sell_cuda(*args, xb)
+    for bad in (cv.long(), cv[:2]):
+        with pytest.raises(ValueError, match="cell_valid"):
+            K.bsr_spmv_sell_cuda(*args, xb, cell_valid=bad)
+    y = K.bsr_spmv_sell_cuda(*args, xb, cell_valid=cv)
+    assert y.shape == (4, 16) and not y.any()
+
+
+# ------------------------ plan keywords: nothing is dropped silently
+
+def _spmv_operand():
+    return gen_zipf(64, seed=1)
+
+
+@pytest.mark.parametrize("entry", ["plan", "plan_bucket"])
+@pytest.mark.parametrize("keyword,queue_item", [
+    ("selector", "item 2"), ("executor", "item 1")])
+def test_plan_refuses_selector_and_executor(entry, keyword, queue_item):
+    """The reference consumes both; until the port's slices for them land,
+    a non-None value raises, naming the ROADMAP Queue A item."""
+    a = _spmv_operand()
+    s = Schedule("bsr", 16, 1.0)
+    with pytest.raises(TypeError, match=f"Queue A {queue_item}"):
+        if entry == "plan":
+            plan("spmv", (a,), schedule=s, device="cpu",
+                 **{keyword: object()})
+        else:
+            plan_bucket("spmv", [a, a], s, device="cpu",
+                        **{keyword: object()})
+    # None is the default and plans as before
+    p = (plan("spmv", (a,), schedule=s, device="cpu", **{keyword: None})
+         if entry == "plan" else
+         plan_bucket("spmv", [a, a], s, device="cpu", **{keyword: None}))
+    assert p.op == "spmv"
+
+
+@pytest.mark.parametrize("op", ["spmv", "spmm", "spgemm", "spadd",
+                                "moe_gmm", "flash_attention"])
+def test_plan_raises_on_a_keyword_its_planner_does_not_take(op):
+    a = _spmv_operand()
+    operands = {"spgemm": (a, a), "spadd": (a, a),
+                "moe_gmm": (np.zeros(2, np.int32),),
+                "flash_attention": ()}.get(op, (a,))
+    with pytest.raises(TypeError, match="no_such_option"):
+        plan(op, operands, device="cpu", no_such_option=1)
+
+
+@pytest.mark.parametrize("op", ["spmv", "spmm", "spgemm", "spadd"])
+def test_plan_bucket_raises_on_a_keyword_its_planner_does_not_take(op):
+    a = _spmv_operand()
+    members = [(a, a)] * 2 if op in ("spgemm", "spadd") else [a, a]
+    with pytest.raises(TypeError, match="no_such_option"):
+        plan_bucket(op, members, Schedule("bsr", 16, 1.0), device="cpu",
+                    no_such_option=1)
+
+
 def _c_argtypes(source: str):
     """{entry point: ctypes argument types} parsed from the ``extern "C"``
     block of ``csrc/<source>.cu``."""
@@ -373,8 +596,11 @@ def test_wrappers_raise_on_failed_launch_without_fallback(name, monkeypatch):
             cb = torch.zeros(6, dtype=torch.int32, device="meta")
             ptr = torch.zeros(5, dtype=torch.int32, device="meta")
             perm = torch.zeros(4, dtype=torch.int32, device="meta")
-            (K.bsr_spmm_sell_cuda if multi else K.bsr_spmv_sell_cuda)(
-                cb, cb.clone(), ptr, perm, blocks, x)
+            if multi:
+                K.bsr_spmm_sell_cuda(cb, cb.clone(), ptr, perm, blocks, x)
+            else:
+                K.bsr_spmv_sell_cuda(cb, cb.clone(), ptr, perm, blocks, x,
+                                     cell_valid=_meta_counts())
     assert K.LAUNCHES[name] == before + 1
 
 

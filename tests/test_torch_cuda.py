@@ -79,8 +79,9 @@ def test_kernel_matches_plain(card, n, bs, layout, multi):
               lambda *a: K.bsr_spmv_cuda(*a, valid_counts=vc))
         plain = ref.ref_bsr_spmm if multi else ref.ref_bsr_spmv
     else:
-        args = ops.sell_device_arrays(SELLBSR.from_bsr(bsr, 4, 8), card)
-        fn = K.bsr_spmm_sell_cuda if multi else K.bsr_spmv_sell_cuda
+        *args, cv = ops.sell_device_arrays(SELLBSR.from_bsr(bsr, 4, 8), card)
+        fn = (K.bsr_spmm_sell_cuda if multi else
+              lambda *a: K.bsr_spmv_sell_cuda(*a, cell_valid=cv))
         plain = (ref.ref_bsr_spmm_sell_perm if multi
                  else ref.ref_bsr_spmv_sell_perm)
     y = fn(*args, xb)
@@ -216,6 +217,114 @@ def test_spmv_ell_wrapper_needs_aligned_x(card):
     assert K.LAUNCHES["bsr_spmv_ell"] == before
 
 
+# ------------------ bsr_spmv_sell: real cells plus one pad cell per row
+
+def _sell_members(rng, bs, case, n_mem):
+    """Stacked SELL cell streams built by hand. Each member's sorted rows
+    own (real, pad) cells: real cells lead (random tiles and columns), pad
+    cells hold the member's own zero block and column 0; a row of pad cells
+    only, a row with no pad cell, rows that own no cells at all (bucket-pad
+    rows) and, for ``case == "long"``, a row longer than one 256-cell index
+    batch. Past the live cells the stream is padded with pad cells, and the
+    pointer gives the last row that owns cells exactly one of them."""
+    n_bc, nb = 5, 10                           # blocks incl. pad blocks
+    long_n = 300 if case == "long" else 6
+    shape = [(2, 1), (0, 2), (long_n, 0), (1, 0), (3, 2), (0, 0), (0, 0)]
+    n_br = len(shape)
+    live = sum(r + p for r, p in shape)
+    n_cells = live + 5 + n_mem                 # the stacked stream's width
+    cb = np.zeros((n_mem, n_cells), np.int32)
+    cc = np.zeros((n_mem, n_cells), np.int32)
+    ptr = np.zeros((n_mem, n_br + 1), np.int32)
+    valid = np.zeros((n_mem, n_br), np.int32)
+    perm = np.zeros((n_mem, n_br), np.int32)
+    blocks = np.zeros((n_mem, nb, bs, bs), np.float32)
+    for b in range(n_mem):
+        zero = 6 + b % 3                       # the member's zero block
+        blocks[b, :zero] = rng.standard_normal((zero, bs, bs))
+        cb[b] = zero
+        t = 0
+        for r, (n_real, n_pad) in enumerate(shape):
+            cb[b, t:t + n_real] = rng.integers(0, zero, n_real)
+            cc[b, t:t + n_real] = rng.integers(0, n_bc, n_real)
+            valid[b, r] = n_real
+            t += n_real + n_pad
+            ptr[b, r + 1] = t
+        ptr[b, 5:] += 1                        # row 4's one bucket-pad cell
+        perm[b] = rng.permutation(n_br)
+    x = rng.standard_normal((n_mem, n_bc, bs)).astype(np.float32)
+    return cb, cc, ptr, perm, blocks, x, valid
+
+
+@pytest.mark.parametrize("bs", REDESIGN_BS)
+@pytest.mark.parametrize("case", ["short", "long"])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_spmv_sell_counts_match_all_cell_plain(card, bs, case, stacked):
+    """The kernel sums cell_valid real cells and one pad cell per row whose
+    range is longer; the plain version sums every cell of the range."""
+    rng = np.random.default_rng(bs + len(case))
+    n_mem = 3 if stacked else 1
+    arrs = [torch.as_tensor(a, device=card)
+            for a in _sell_members(rng, bs, case, n_mem)]
+    if not stacked:
+        arrs = [a[0] for a in arrs]
+    cb, cc, ptr, perm, blocks, x, valid = arrs
+    before = K.LAUNCHES["bsr_spmv_sell"]
+    y = K.bsr_spmv_sell_cuda(cb, cc, ptr, perm, blocks, x, cell_valid=valid)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["bsr_spmv_sell"] == before + 1
+    want = ref.ref_bsr_spmv_sell_perm(cb, cc, ptr, perm, blocks, x)
+    _near(y, want)
+    for yb, pb in ((y, perm),) if not stacked else zip(y, perm):
+        assert not bool(yb[pb[5:].long()].any())   # rows that own no cells
+
+
+@pytest.mark.parametrize("bs", REDESIGN_BS)
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+@pytest.mark.parametrize("multi", [False, True])
+def test_sell_nonfinite_x_gives_plain_nan_pattern(card, bs, bad, multi):
+    """A NaN or an Inf in ``x_blocks[0]``, which every pad cell reads, for
+    both SELL kernels: NaN in exactly the rows the all-cell sum makes NaN
+    (the row of pad cells only, the rows with slice-width pad cells and the
+    row that owns the bucket-pad cell), one member and stacked."""
+    rng = np.random.default_rng(bs)
+    cb, cc, ptr, perm, blocks, x, valid = (
+        torch.as_tensor(a, device=card)
+        for a in _sell_members(rng, bs, "short", 2))
+    if multi:
+        x = x.unsqueeze(-1).expand(-1, -1, -1, 8).contiguous()
+    x[:, 0, bs // 2] = bad
+    for args in ((cb, cc, ptr, perm, blocks, x),
+                 tuple(t[1] for t in (cb, cc, ptr, perm, blocks, x))):
+        if multi:
+            y = K.bsr_spmm_sell_cuda(*args)
+            want = ref.ref_bsr_spmm_sell_perm(*args)
+        else:
+            cv = valid if args[0].dim() == 2 else valid[1]
+            y = K.bsr_spmv_sell_cuda(*args, cell_valid=cv)
+            want = ref.ref_bsr_spmv_sell_perm(*args)
+        torch.cuda.synchronize()
+        assert bool(want.isnan().any())
+        _near(y, want)
+
+
+def test_spmv_sell_wrapper_needs_its_counts(card):
+    cb = torch.zeros(6, dtype=torch.int32, device=card)
+    ptr = torch.zeros(5, dtype=torch.int32, device=card)
+    perm = torch.arange(4, dtype=torch.int32, device=card)
+    blocks = torch.zeros((5, 8, 8), device=card)
+    x = torch.zeros((4, 8), device=card)
+    with pytest.raises(TypeError, match="cell_valid"):
+        K.bsr_spmv_sell_cuda(cb, cb, ptr, perm, blocks, x)
+    with pytest.raises(ValueError, match="cell_valid"):
+        K.bsr_spmv_sell_cuda(cb, cb, ptr, perm, blocks, x,
+                             cell_valid=perm.long())
+    bad_x = torch.zeros(4 * 8 + 1, device=card)[1:].view(4, 8)
+    with pytest.raises(ValueError, match="x_blocks must be 16-byte aligned"):
+        K.bsr_spmv_sell_cuda(cb, cb, ptr, perm, blocks, bad_x,
+                             cell_valid=perm)
+
+
 # --------------------- bsr_spgemm_pairs: the real pairs of each block
 
 def _pair_members(rng, bs, case, n_mem):
@@ -288,6 +397,59 @@ def test_spgemm_pairs_wrapper_needs_its_counts(card):
         GK.bsr_spgemm_pairs_cuda(pa, pa, a, a)
     with pytest.raises(ValueError, match="pair_counts"):
         GK.bsr_spgemm_pairs_cuda(pa, pa, a, a, pair_counts=pa[:3, 0])
+
+
+# ------------------- bsr_spgemm_cells: the flat cell stream of each block
+
+def _cell_members(rng, bs, case, n_mem):
+    """Stacked flat cell streams built by hand: output block k owns
+    ``counts[k]`` real (A, B) cells, consecutive in the stream; 13 blocks
+    (runs of consecutive blocks end inside and at the end of the output),
+    blocks with no cells, and (``case == "long"``) a block with more cells
+    than one index batch. Past the live cells the stream is padded with
+    the member's (A sentinel, B sentinel) cells, which belong to no block."""
+    long_n = 300 if case == "long" and bs >= 96 else 40
+    counts = np.array([0, 1, 2, 1, long_n if case == "long" else 3, 0, 3, 1,
+                       1, 0, 2, 1, 1])
+    n_c = counts.size
+    n_a, n_b = 8, 9                            # tiles incl. pad tiles
+    n_list = int(counts.sum()) + 4 + n_mem
+    ca = np.zeros((n_mem, n_list), np.int32)
+    cbl = np.zeros((n_mem, n_list), np.int32)
+    ptr = np.zeros((n_mem, n_c + 1), np.int32)
+    a = np.zeros((n_mem, n_a, bs, bs), np.float32)
+    b = np.zeros((n_mem, n_b, bs, bs), np.float32)
+    for m in range(n_mem):
+        za, zb = 5 + m % 3, 4 + m % 2          # the member's sentinels
+        a[m, :za] = rng.standard_normal((za, bs, bs))
+        b[m, :zb] = rng.standard_normal((zb, bs, bs))
+        cnt = np.roll(counts, m)
+        live = int(cnt.sum())
+        ca[m], cbl[m] = za, zb
+        ca[m, :live] = rng.integers(0, za, live)
+        cbl[m, :live] = rng.integers(0, zb, live)
+        ptr[m, 1:] = np.cumsum(cnt)
+    return ca, cbl, ptr, a, b
+
+
+@pytest.mark.parametrize("bs", REDESIGN_BS)
+@pytest.mark.parametrize("case", ["short", "long"])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_spgemm_cells_match_plain(card, bs, case, stacked):
+    rng = np.random.default_rng(bs + len(case))
+    n_mem = 2 if stacked else 1
+    arrs = [torch.as_tensor(t, device=card)
+            for t in _cell_members(rng, bs, case, n_mem)]
+    if not stacked:
+        arrs = [t[0] for t in arrs]
+    ca, cbl, ptr, a, b = arrs
+    before = GK.LAUNCHES["bsr_spgemm_cells"]
+    c = GK.bsr_spgemm_cells_cuda(ca, cbl, ptr, a, b)
+    torch.cuda.synchronize()
+    assert GK.LAUNCHES["bsr_spgemm_cells"] == before + 1
+    _near(c, GR.ref_cell_gemm_ptr(ca, cbl, ptr, a, b))
+    empty = (ptr[..., 1:] == ptr[..., :-1])
+    assert not bool(c[empty].any())            # blocks that own no cells
 
 
 # ------------------------------------------------------- spgemm / spadd

@@ -45,7 +45,7 @@ def main() -> int:
             st = SparseTensor.from_csr(A, schedule=sched, shape_bucket=True)
             n_bc = -(-st.meta.shape[1] // bs)
             for multi in (False, True):
-                kname, fn, _, idx = kernel_args(st, multi)
+                kname, fn, _, idx, count = kernel_args(st, multi)
                 shape = (n_bc, bs, 8) if multi else (n_bc, bs)
                 xb = torch.as_tensor(
                     rng.standard_normal(shape).astype(np.float32),
@@ -56,7 +56,7 @@ def main() -> int:
                     K.rows_per_cta = ((lambda b, n: b) if arm == "whole"
                                       else chosen)
                     times[arm].append(cuda_timer(
-                        lambda: fn(*idx, blocks, xb)))
+                        lambda: fn(*idx, blocks, xb, **count)))
                 K.rows_per_cta = chosen
                 print(json.dumps({
                     "kernel": kname, "input": name,
