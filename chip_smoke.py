@@ -17,8 +17,9 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      ``gen_spatial(524288)`` (bs=32) and ``gen_zipf(8192)`` (bs=128)
      through a ``PreparedStore``, then ``plan_bucket("spmv")`` over four
      distinct ``gen_zipf`` members in each layout (one launch each) and
-     over four requests on one matrix (one multi-RHS launch); each output
-     within
+     over four requests on one matrix (one multi-RHS launch); each plan
+     executes twice and prints a ``{"plan": "spmv"|"spmm", "input",
+     "layout", "ms_first", "ms"}`` line; each output within
      ``1e-4 * max|y_ref|`` of the float64 oracle (fp32 sums of up to 8,192
      products, taken in another order);
   3. spgemm main path: ``plan("spgemm", (A, A))`` with ``layout="ell"``
@@ -216,23 +217,25 @@ def torch_csr(A, device: str):
 
 def kernel_args(st, multi: bool):
     """(kernel name, CUDA wrapper, plain version, index tensors, count
-    keyword) of a prepared operand; the count keyword is the one the SpMV
-    wrappers alone take (``valid_counts`` / ``cell_valid`` of the operand),
-    else empty."""
+    keyword) of a prepared operand; the count keyword is the one the
+    wrappers alone take (``valid_counts`` / ``cell_valid`` of the
+    operand)."""
     from repro_torch.kernels.bsr_spmv import kernel as K
     from repro_torch.kernels.bsr_spmv import ref as R
     a = st.arrays
     if st.layout == "ell":
         idx = (a["block_indices"], a["block_cols"])
-        return (("bsr_spmm_ell", K.bsr_spmm_cuda, R.ref_bsr_spmm, idx, {})
+        count = {"valid_counts": a["valid_counts"]}
+        return (("bsr_spmm_ell", K.bsr_spmm_cuda, R.ref_bsr_spmm, idx, count)
                 if multi else
                 ("bsr_spmv_ell", K.bsr_spmv_cuda, R.ref_bsr_spmv, idx,
-                 {"valid_counts": a["valid_counts"]}))
+                 count))
     idx = (a["cell_block"], a["cell_col"], a["cell_ptr"], a["row_perm"])
+    count = {"cell_valid": a["cell_valid"]}
     return (("bsr_spmm_sell", K.bsr_spmm_sell_cuda, R.ref_bsr_spmm_sell_perm,
-             idx, {}) if multi else
+             idx, count) if multi else
             ("bsr_spmv_sell", K.bsr_spmv_sell_cuda, R.ref_bsr_spmv_sell_perm,
-             idx, {"cell_valid": a["cell_valid"]}))
+             idx, count))
 
 
 def bound(nbytes: float, flops: float):
@@ -298,6 +301,18 @@ def check_nonfinite_pattern(name: str, cuda_fn, plain_fn, idx, count: dict,
               f"finite outputs {d:.3e} apart")
 
 
+def matvec_plan_line(p, x, inp_name: str, layout: str) -> np.ndarray:
+    """Two executes of a spmv/spmm plan (the first launches each kernel
+    for the first time), each timed by the plan itself; emits their times
+    and returns the second's output on the host."""
+    p.execute(x)
+    first = p.last_measured_s
+    y = p.execute(x).cpu().numpy()
+    emit({"plan": p.op, "input": inp_name, "layout": layout,
+          "ms_first": first * 1e3, "ms": p.last_measured_s * 1e3})
+    return y
+
+
 def run_matvec(device: str, inputs, members, seed: int, timer) -> dict:
     """The spmv/spmm main path and its four kernels' rows; returns
     {kernel: [records]} and the main-path launch counts."""
@@ -337,10 +352,10 @@ def run_matvec(device: str, inputs, members, seed: int, timer) -> dict:
             s = sched(layout, inp["bs"])
             pv = plan("spmv", (inp["A"],), schedule=s, store=store,
                       device=device)
-            y = pv.execute(inp["x"]).cpu().numpy()
+            y = matvec_plan_line(pv, inp["x"], inp["name"], layout)
             pm = plan("spmm", (inp["A"],), schedule=s, store=store,
                       device=device)
-            Y = pm.execute(inp["X"]).cpu().numpy()
+            Y = matvec_plan_line(pm, inp["X"], inp["name"], layout)
             e_v, e_m = rel_err(y, inp["y_ref"]), rel_err(Y, inp["Y_ref"])
             log(f"plan {inp['name']} {layout}: spmv rel_err={e_v:.3e} "
                 f"({pv.last_measured_s * 1e3:.3f} ms) spmm rel_err="

@@ -10,20 +10,23 @@ to its launch count and raises if the launch failed. It never falls back:
 on CPU tensors, and only there, it computes the plain PyTorch version
 (``ref.py``), and counts nothing.
 
-The ELL SpMV kernel also takes ``valid_counts`` (the container's count of
-real slots leading each row, (n_br,) or (B, n_br) int32), a required
-keyword: it sums those slots and one pad slot per row that has one, which
-is the all-slot sum the plain version and the TPU kernel compute. On CPU
-tensors it is checked and the plain version sums every slot.
+The ELL kernels also take ``valid_counts`` (the container's count of real
+slots leading each row, (n_br,) or (B, n_br) int32), a required keyword:
+they sum those slots and one pad slot per row that has one, which is the
+all-slot sum the plain version and the TPU kernel compute. On CPU tensors
+it is checked and the plain version sums every slot.
 
 The SELL kernels take ``cell_ptr`` (the (n_br+1,) row pointer of the
 nondecreasing ``cell_row``, which gives a member's last sorted row one of
 its bucket-pad cells, see ``ops.sell_row_ptr``) and ``row_perm`` and return
 rows in ORIGINAL order: the scatter through ``row_perm`` is fused into the
-kernel. The SELL SpMV kernel also takes ``cell_valid`` (the real cells that
-lead each sorted row, (n_br,) or (B, n_br) int32), a required keyword: it
-sums those cells and one more per row whose range is longer, which is the
-sum over the row's whole range that the plain version computes.
+kernel. They also take ``cell_valid`` (the real cells that lead each
+sorted row, (n_br,) or (B, n_br) int32), a required keyword: they sum
+those cells and one more per row whose range is longer, which is the sum
+over the row's whole range that the plain version computes.
+
+Every kernel copies ``blocks`` and ``x_blocks`` 16 bytes at a time, so on
+the card both must start on 16 bytes.
 """
 from __future__ import annotations
 
@@ -46,12 +49,12 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "bsr_spmv_ell": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I,
                      _P],
-    "bsr_spmm_ell": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _I,
-                     _P],
+    "bsr_spmm_ell": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I,
+                     _I, _P],
     "bsr_spmv_sell": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _I,
                       _I, _I, _P],
-    "bsr_spmm_sell": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _I, _I,
-                      _I, _I, _P],
+    "bsr_spmm_sell": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _I,
+                      _I, _I, _I, _P],
 }
 RHS_TILE = 8          # SpMM kernels take k in multiples of this
 # One CTA per (block-row, RHS tile, member); below this many CTAs the tile
@@ -107,25 +110,26 @@ def _x_shape(name: str, x: torch.Tensor, stacked: bool, multi: bool,
     return int(x.shape[lead]), k
 
 
+def _check_counts(name: str, key: str, counts, shape) -> None:
+    if counts.shape != shape or counts.dtype != torch.int32:
+        raise ValueError(f"{name}: {key} must be int32 of shape "
+                         f"{tuple(shape)}, got {counts.dtype} "
+                         f"{tuple(counts.shape)}")
+
+
 def _ell(name: str, multi: bool, block_indices, block_cols, blocks,
-         x_blocks, valid_counts=None):
-    counted = not multi      # the SpMV kernel stops at valid_counts
-    if counted and (valid_counts.shape != block_indices.shape[:-1]
-                    or valid_counts.dtype != torch.int32):
-        raise ValueError(f"{name}: valid_counts must be int32 of shape "
-                         f"{tuple(block_indices.shape[:-1])}, got "
-                         f"{valid_counts.dtype} {tuple(valid_counts.shape)}")
+         x_blocks, valid_counts):
+    _check_counts(name, "valid_counts", valid_counts,
+                  block_indices.shape[:-1])
     if block_indices.device.type == "cpu":
         f = ref.ref_bsr_spmm if multi else ref.ref_bsr_spmv
         return f(block_indices, block_cols, blocks, x_blocks)
-    operands = {"block_indices": block_indices, "block_cols": block_cols,
-                "blocks": blocks, "x_blocks": x_blocks}
-    if counted:
-        operands["valid_counts"] = valid_counts
-    # the counted kernel also copies x segments 16 bytes at a time
-    check_operands(name, operands,
+    check_operands(name, {"block_indices": block_indices,
+                          "block_cols": block_cols,
+                          "valid_counts": valid_counts, "blocks": blocks,
+                          "x_blocks": x_blocks},
                    ints=("block_indices", "block_cols", "valid_counts"),
-                   aligned=("blocks", "x_blocks") if counted else ("blocks",))
+                   aligned=("blocks", "x_blocks"))
     stacked = block_indices.dim() == 3
     if block_indices.dim() != (3 if stacked else 2) or \
             block_cols.shape != block_indices.shape:
@@ -143,37 +147,28 @@ def _ell(name: str, multi: bool, block_indices, block_cols, blocks,
     if n_br == 0:
         return y
     rows = rows_per_cta(bs, n_br * (k // RHS_TILE if multi else 1) * n_mem)
-    args = [block_indices.data_ptr(), block_cols.data_ptr()] + \
-        ([valid_counts.data_ptr()] if counted else []) + \
-        [blocks.data_ptr(), x_blocks.data_ptr(), y.data_ptr(), n_mem,
-         n_br, mb, nb, bs, n_bc] + ([k] if multi else []) + \
-        [rows, _stream(blocks.device)]
+    args = [block_indices.data_ptr(), block_cols.data_ptr(),
+            valid_counts.data_ptr(), blocks.data_ptr(), x_blocks.data_ptr(),
+            y.data_ptr(), n_mem, n_br, mb, nb, bs, n_bc] + \
+        ([k] if multi else []) + [rows, _stream(blocks.device)]
     LAUNCHES[name] += 1
     _raise_on(name, _fn(name)(*args))
     return y
 
 
 def _sell(name: str, multi: bool, cell_block, cell_col, cell_ptr, row_perm,
-          blocks, x_blocks, cell_valid=None):
-    counted = not multi      # the SpMV kernel stops at cell_valid (+1)
-    if counted and (cell_valid.shape != row_perm.shape
-                    or cell_valid.dtype != torch.int32):
-        raise ValueError(f"{name}: cell_valid must be int32 of shape "
-                         f"{tuple(row_perm.shape)}, got {cell_valid.dtype} "
-                         f"{tuple(cell_valid.shape)}")
+          blocks, x_blocks, cell_valid):
+    _check_counts(name, "cell_valid", cell_valid, row_perm.shape)
     if cell_block.device.type == "cpu":
         f = ref.ref_bsr_spmm_sell_perm if multi else ref.ref_bsr_spmv_sell_perm
         return f(cell_block, cell_col, cell_ptr, row_perm, blocks, x_blocks)
-    operands = {"cell_block": cell_block, "cell_col": cell_col,
-                "cell_ptr": cell_ptr, "row_perm": row_perm, "blocks": blocks,
-                "x_blocks": x_blocks}
-    if counted:
-        operands["cell_valid"] = cell_valid
-    # the counted kernel also copies x segments 16 bytes at a time
-    check_operands(name, operands,
+    check_operands(name, {"cell_block": cell_block, "cell_col": cell_col,
+                          "cell_ptr": cell_ptr, "cell_valid": cell_valid,
+                          "row_perm": row_perm, "blocks": blocks,
+                          "x_blocks": x_blocks},
                    ints=("cell_block", "cell_col", "cell_ptr", "row_perm",
                          "cell_valid"),
-                   aligned=("blocks", "x_blocks") if counted else ("blocks",))
+                   aligned=("blocks", "x_blocks"))
     stacked = cell_block.dim() == 2
     lead = 1 if stacked else 0
     if cell_block.dim() != lead + 1 or cell_col.shape != cell_block.shape \
@@ -194,11 +189,10 @@ def _sell(name: str, multi: bool, cell_block, cell_col, cell_ptr, row_perm,
     y = torch.empty(shape, dtype=torch.float32, device=blocks.device)
     if n_br == 0:
         return y
-    args = [cell_block.data_ptr(), cell_col.data_ptr(), cell_ptr.data_ptr()] \
-        + ([cell_valid.data_ptr()] if counted else []) + \
-        [row_perm.data_ptr(), blocks.data_ptr(), x_blocks.data_ptr(),
-         y.data_ptr(), n_mem, n_br, n_cells, nb, bs, n_bc] + \
-        ([k] if multi else []) + \
+    args = [cell_block.data_ptr(), cell_col.data_ptr(), cell_ptr.data_ptr(),
+            cell_valid.data_ptr(), row_perm.data_ptr(), blocks.data_ptr(),
+            x_blocks.data_ptr(), y.data_ptr(), n_mem, n_br, n_cells, nb, bs,
+            n_bc] + ([k] if multi else []) + \
         [rows_per_cta(bs, n_br * (k // RHS_TILE if multi else 1) * n_mem),
          _stream(blocks.device)]
     LAUNCHES[name] += 1
@@ -215,11 +209,13 @@ def bsr_spmv_cuda(block_indices, block_cols, blocks, x_blocks, *,
                 x_blocks, valid_counts)
 
 
-def bsr_spmm_cuda(block_indices, block_cols, blocks, x_blocks):
-    """Y = A @ X, A in ELL-BSR, x_blocks (n_bc, bs, k), k a multiple of 8
-    -> (n_br, bs, k). Replaces ``bsr_spmm_pallas``."""
+def bsr_spmm_cuda(block_indices, block_cols, blocks, x_blocks, *,
+                  valid_counts):
+    """Y = A @ X, A in ELL-BSR, x_blocks (n_bc, bs, k), k a multiple of 8,
+    valid_counts as for ``bsr_spmv_cuda`` -> (n_br, bs, k). Replaces
+    ``bsr_spmm_pallas``."""
     return _ell("bsr_spmm_ell", True, block_indices, block_cols, blocks,
-                x_blocks)
+                x_blocks, valid_counts)
 
 
 def bsr_spmv_sell_cuda(cell_block, cell_col, cell_ptr, row_perm, blocks,
@@ -233,8 +229,8 @@ def bsr_spmv_sell_cuda(cell_block, cell_col, cell_ptr, row_perm, blocks,
 
 
 def bsr_spmm_sell_cuda(cell_block, cell_col, cell_ptr, row_perm, blocks,
-                       x_blocks):
+                       x_blocks, *, cell_valid):
     """Multi-RHS form of ``bsr_spmv_sell_cuda``: x_blocks (n_bc, bs, k), k a
     multiple of 8 -> (n_br, bs, k). Replaces ``bsr_spmm_sell_pallas``."""
     return _sell("bsr_spmm_sell", True, cell_block, cell_col, cell_ptr,
-                 row_perm, blocks, x_blocks)
+                 row_perm, blocks, x_blocks, cell_valid)

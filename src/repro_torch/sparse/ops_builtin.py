@@ -64,15 +64,15 @@ MATVEC_LAYOUTS = ("ell", "sell", "dense")
 RHS_TILE = K.RHS_TILE
 
 # (layout, multi-RHS) -> (CUDA kernel wrapper, plain PyTorch version, the
-# count the wrapper alone takes as a keyword, or None); both take the
-# layout's index arrays, the blocks and the blocked RHS, and return rows in
-# original order.
+# count the wrapper alone takes as a keyword); both take the layout's index
+# arrays, the blocks and the blocked RHS, and return rows in original order.
 _MATVEC_FNS = {
     ("ell", False): (K.bsr_spmv_cuda, R.ref_bsr_spmv, "valid_counts"),
-    ("ell", True): (K.bsr_spmm_cuda, R.ref_bsr_spmm, None),
+    ("ell", True): (K.bsr_spmm_cuda, R.ref_bsr_spmm, "valid_counts"),
     ("sell", False): (K.bsr_spmv_sell_cuda, R.ref_bsr_spmv_sell_perm,
                       "cell_valid"),
-    ("sell", True): (K.bsr_spmm_sell_cuda, R.ref_bsr_spmm_sell_perm, None),
+    ("sell", True): (K.bsr_spmm_sell_cuda, R.ref_bsr_spmm_sell_perm,
+                     "cell_valid"),
 }
 _LAYOUT_ARGS = {
     "ell": ("block_indices", "block_cols", "blocks"),
@@ -103,7 +103,7 @@ def _run_layout(arrays: Dict[str, torch.Tensor], layout: str,
     args = [arrays[k] for k in _LAYOUT_ARGS[layout]] + [xb]
     if backend != "cuda":
         return plain_fn(*args)
-    return cuda_fn(*args, **({count: arrays[count]} if count else {}))
+    return cuda_fn(*args, **{count: arrays[count]})
 
 
 # ---------------------------------------------------------------------------

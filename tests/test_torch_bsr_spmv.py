@@ -78,11 +78,8 @@ def _ell_case(n, bs, multi):
 def test_ell_plain_matches_jax_ref_and_interpret(n, bs, multi):
     d, ell, xb, x = _ell_case(n, bs, multi)
     args = (ell.block_indices, ell.block_cols, ell.blocks, xb)
-    if multi:
-        y = K.bsr_spmm_cuda(*(_t(a) for a in args)).numpy()  # CPU: plain
-    else:
-        y = K.bsr_spmv_cuda(*(_t(a) for a in args),
-                            valid_counts=_t(ell.valid_counts)).numpy()
+    fn = K.bsr_spmm_cuda if multi else K.bsr_spmv_cuda     # CPU: plain
+    y = fn(*(_t(a) for a in args), valid_counts=_t(ell.valid_counts)).numpy()
     jr = (jref.ref_bsr_spmm if multi else jref.ref_bsr_spmv)(
         *(jnp.asarray(a) for a in args))
     ji = (jk.bsr_spmm_pallas if multi else jk.bsr_spmv_pallas)(
@@ -104,9 +101,8 @@ def test_sell_plain_matches_jax_ref_and_interpret(n, bs, C, sigma, multi):
     xb = _x_blocks(x, -(-n // bs), bs)
     cb, cc, ptr, perm, blocks, cv = ops.sell_device_arrays(sell,
                                                            device="cpu")
-    y = (K.bsr_spmm_sell_cuda(cb, cc, ptr, perm, blocks, _t(xb)) if multi
-         else K.bsr_spmv_sell_cuda(cb, cc, ptr, perm, blocks, _t(xb),
-                                   cell_valid=cv)).numpy()
+    fn = K.bsr_spmm_sell_cuda if multi else K.bsr_spmv_sell_cuda
+    y = fn(cb, cc, ptr, perm, blocks, _t(xb), cell_valid=cv).numpy()
     jargs = (jnp.asarray(sell.cell_block), jnp.asarray(sell.cell_col),
              jnp.asarray(sell.cell_row), jnp.asarray(sell.blocks),
              jnp.asarray(xb))
@@ -164,13 +160,12 @@ def test_stacked_members_equal_per_member(layout, multi):
     fn = {("ell", False): K.bsr_spmv_cuda, ("ell", True): K.bsr_spmm_cuda,
           ("sell", False): K.bsr_spmv_sell_cuda,
           ("sell", True): K.bsr_spmm_sell_cuda}[(layout, multi)]
-    count = None if multi else ("valid_counts" if layout == "ell"
-                                else "cell_valid")
+    count = "valid_counts" if layout == "ell" else "cell_valid"
     stacked = fn(*(arrs[n] for n in names), arrs["blocks"], _t(xs),
-                 **({count: arrs[count]} if count else {}))
+                 **{count: arrs[count]})
     for b in range(4):
         one = fn(*(arrs[n][b] for n in names), arrs["blocks"][b],
-                 _t(xs[b]), **({count: arrs[count][b]} if count else {}))
+                 _t(xs[b]), **{count: arrs[count][b]})
         np.testing.assert_array_equal(stacked[b].numpy(), one.numpy())
     assert not stacked[3].any()                   # the zero member
     for b, m in enumerate(mats):
@@ -249,6 +244,44 @@ def test_bucket_valid_counts_are_per_member(resident, shape_bucket):
     assert not vc[3].any()                        # the zero member
 
 
+def _two_block_csr(n, bs, rng):
+    """Block-rows 0..n_br-2 hold two real blocks (columns r and r + 1) and
+    no ELL pad slot; the last one holds one real block and one pad slot."""
+    n_br = -(-n // bs)
+    d = np.zeros((n, n), np.float32)
+    for r in range(n_br):
+        for c in (r, r + 1):
+            d[r * bs:(r + 1) * bs, c * bs:(c + 1) * bs] = rng.standard_normal(
+                d[r * bs:(r + 1) * bs, c * bs:(c + 1) * bs].shape)
+    return CSR.from_dense(d)
+
+
+def _assert_plan_ell_nonfinite_matches_jax(op, bad, where, cols):
+    """The port's ELL plan and the JAX facade's (jnp, NaN guard off, which
+    would serve a dense fallback) on x with ``bad`` at row 3 (in x[0:bs],
+    which every pad slot reads) or in a real block's row, at the column
+    index ``cols`` (``()`` for SpMV)."""
+    n, bs = 200, 16
+    n_br = -(-n // bs)
+    rng = np.random.default_rng(0)
+    csr = _two_block_csr(n, bs, rng)
+    jcsr = JCSR(csr.row_ptrs, csr.col_idxs, csr.nnz_vals, csr.shape)
+    x = rng.standard_normal((n, 3) if op == "spmm" else n).astype(np.float32)
+    x[(3 if where == "first_block" else 5 * bs + 2,) + cols] = bad
+    y = plan(op, (csr,), schedule=Schedule("bsr", bs, 1.0),
+             shape_bucket=False, device="cpu").execute(x).numpy()
+    jy = np.asarray(jplan(op, (jcsr,), schedule=JSchedule("bsr", bs, 1.0),
+                          backend="jnp", shape_bucket=False,
+                          executor=GuardedExecutor(nan_guard=False)
+                          ).execute(x))
+    _assert_nonfinite_equal(y, jy)
+    fin = np.isfinite(jy)
+    assert (~fin).any() and fin.any()
+    # the last block-row reads x[0:bs] only through its pad slot
+    assert np.isnan(y[(n_br - 1) * bs:]).any() == (where == "first_block")
+    return y
+
+
 @pytest.mark.parametrize("bad", [np.nan, np.inf])
 @pytest.mark.parametrize("where", ["first_block", "real_column"])
 def test_plan_spmv_ell_nonfinite_x_matches_jax(bad, where):
@@ -258,32 +291,20 @@ def test_plan_spmv_ell_nonfinite_x_matches_jax(bad, where):
     hold two real blocks and no pad slot, the last one real block and one
     pad slot. (The JAX plan runs without its NaN guard, which would serve
     a dense fallback.)"""
-    n, bs = 200, 16
-    n_br = -(-n // bs)
-    rng = np.random.default_rng(0)
-    d = np.zeros((n, n), np.float32)
-    for r in range(n_br):
-        for c in (r, r + 1):
-            d[r * bs:(r + 1) * bs, c * bs:(c + 1) * bs] = rng.standard_normal(
-                d[r * bs:(r + 1) * bs, c * bs:(c + 1) * bs].shape)
-    csr = CSR.from_dense(d)
-    jcsr = JCSR(csr.row_ptrs, csr.col_idxs, csr.nnz_vals, csr.shape)
-    x = rng.standard_normal(n).astype(np.float32)
-    x[3 if where == "first_block" else 5 * bs + 2] = bad
-    y = plan("spmv", (csr,), schedule=Schedule("bsr", bs, 1.0),
-             shape_bucket=False, device="cpu").execute(x).numpy()
-    jy = np.asarray(jplan("spmv", (jcsr,), schedule=JSchedule("bsr", bs, 1.0),
-                          backend="jnp", shape_bucket=False,
-                          executor=GuardedExecutor(nan_guard=False)
-                          ).execute(x))
-    np.testing.assert_array_equal(np.isnan(y), np.isnan(jy))
-    np.testing.assert_array_equal(np.isinf(y), np.isinf(jy))
-    np.testing.assert_array_equal(y[np.isinf(jy)], jy[np.isinf(jy)])
-    fin = np.isfinite(jy)
-    assert (~fin).any() and fin.any()
-    # the last block-row reads x[0:bs] only through its pad slot
-    assert np.isnan(y[(n_br - 1) * bs:]).all() == (where == "first_block")
-    np.testing.assert_allclose(y[fin], jy[fin], rtol=2e-5, atol=2e-5)
+    y = _assert_plan_ell_nonfinite_matches_jax("spmv", bad, where, ())
+    assert np.isnan(y[(200 // 16) * 16:]).all() == (where == "first_block")
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf])
+@pytest.mark.parametrize("where", ["first_block", "real_column"])
+def test_plan_spmm_ell_nonfinite_x_matches_jax(bad, where):
+    """The SpMM form: ``bad`` in column 1 of x only, so each block-row that
+    reads it is non-finite in column 1 alone, and with it in x[0:bs] the
+    last block-row's pad slot makes exactly its column 1 NaN."""
+    y = _assert_plan_ell_nonfinite_matches_jax("spmm", bad, where, (1,))
+    assert np.isfinite(y[:, [0, 2]]).all()
+    last = y[(200 // 16) * 16:]
+    assert np.isnan(last[:, 1]).all() == (where == "first_block")
 
 
 # ------------------- SELL: the bucket-pad cells of a member's last row
@@ -539,9 +560,13 @@ def test_ctypes_argtypes_match_the_cu_signatures():
     assert sorted(gemm) == ["bsr_spgemm_cells", "bsr_spgemm_pairs"]
     for name, types in gemm.items():
         assert types == GK._ARGTYPES, name
-    # the counted ELL SpMV takes valid_counts third
-    assert spmv["bsr_spmv_ell"][:3] == [ctypes.c_void_p] * 3
-    assert len(spmv["bsr_spmv_ell"]) == len(spmv["bsr_spmm_ell"])
+    # the counted ELL kernels take valid_counts third, the SELL ones
+    # cell_valid fourth; each SpMM kernel takes one more int (k) before
+    # rows_per_cta
+    for layout, n_ptr in (("ell", 6), ("sell", 8)):
+        v, m = spmv[f"bsr_spmv_{layout}"], spmv[f"bsr_spmm_{layout}"]
+        assert v[:n_ptr] == m[:n_ptr] == [ctypes.c_void_p] * n_ptr
+        assert m == v[:-2] + [ctypes.c_int] + v[-2:]
 
 
 def test_spmv_wrapper_needs_its_valid_counts():
@@ -555,6 +580,29 @@ def test_spmv_wrapper_needs_its_valid_counts():
     for bad in (_t(ell.valid_counts).long(), _t(ell.valid_counts)[:2]):
         with pytest.raises(ValueError, match="valid_counts"):
             K.bsr_spmv_cuda(*args, valid_counts=bad)
+
+
+@pytest.mark.parametrize("layout", ["ell", "sell"])
+def test_spmm_wrappers_need_their_counts(layout):
+    """The SpMM wrappers take their layout's count as a required keyword,
+    on CPU tensors as on the card, of the rows' shape and int32."""
+    bsr = BSR.from_csr(gen_zipf(64, seed=1), 16)
+    xb = torch.zeros((4, 16, 8))
+    if layout == "ell":
+        ell = ELLBSR.from_bsr(bsr)
+        fn, key, count = K.bsr_spmm_cuda, "valid_counts", _t(ell.valid_counts)
+        args = [_t(ell.block_indices), _t(ell.block_cols), _t(ell.blocks)]
+    else:
+        fn, key = K.bsr_spmm_sell_cuda, "cell_valid"
+        *args, count = ops.sell_device_arrays(SELLBSR.from_bsr(bsr, 2, 4),
+                                              device="cpu")
+    with pytest.raises(TypeError, match=key):
+        fn(*args, xb)
+    for bad in (count.long(), count[:2], count.float()):
+        with pytest.raises(ValueError, match=key):
+            fn(*args, xb, **{key: bad})
+    y = fn(*args, xb, **{key: count})
+    assert y.shape == (4, 16, 8) and not y.any()
 
 
 # ------------------------------------------------ the wrappers' CUDA branch
@@ -587,20 +635,16 @@ def test_wrappers_raise_on_failed_launch_without_fallback(name, monkeypatch):
     idx, cols, blocks, x = _meta_ell(multi)
     before = K.LAUNCHES[name]
     with pytest.raises(RuntimeError, match="CUDA launch failed"):
-        if multi and not name.endswith("_sell"):
-            K.bsr_spmm_cuda(idx, cols, blocks, x)
-        elif not name.endswith("_sell"):
-            K.bsr_spmv_cuda(idx, cols, blocks, x,
-                            valid_counts=_meta_counts())
+        if not name.endswith("_sell"):
+            fn = K.bsr_spmm_cuda if multi else K.bsr_spmv_cuda
+            fn(idx, cols, blocks, x, valid_counts=_meta_counts())
         else:
             cb = torch.zeros(6, dtype=torch.int32, device="meta")
             ptr = torch.zeros(5, dtype=torch.int32, device="meta")
             perm = torch.zeros(4, dtype=torch.int32, device="meta")
-            if multi:
-                K.bsr_spmm_sell_cuda(cb, cb.clone(), ptr, perm, blocks, x)
-            else:
-                K.bsr_spmv_sell_cuda(cb, cb.clone(), ptr, perm, blocks, x,
-                                     cell_valid=_meta_counts())
+            fn = K.bsr_spmm_sell_cuda if multi else K.bsr_spmv_sell_cuda
+            fn(cb, cb.clone(), ptr, perm, blocks, x,
+               cell_valid=_meta_counts())
     assert K.LAUNCHES[name] == before + 1
 
 
@@ -611,7 +655,8 @@ def test_wrappers_reject_what_the_kernel_does_not_take():
         K.bsr_spmv_cuda(idx.long(), cols, blocks, x, valid_counts=vc)
     with pytest.raises(ValueError, match="multiple of 8"):
         K.bsr_spmm_cuda(idx, cols, blocks,
-                        torch.zeros((4, 8, 5), device="meta"))
+                        torch.zeros((4, 8, 5), device="meta"),
+                        valid_counts=vc)
     with pytest.raises(ValueError, match="block size"):
         K.bsr_spmv_cuda(idx, cols, torch.zeros((5, 6, 6), device="meta"),
                         torch.zeros((4, 6), device="meta"), valid_counts=vc)

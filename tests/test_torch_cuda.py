@@ -75,13 +75,13 @@ def test_kernel_matches_plain(card, n, bs, layout, multi):
         idx, cols, blocks, _ = ops.ell_device_arrays(ell, card)
         args = (idx, cols, blocks)
         vc = torch.as_tensor(ell.valid_counts, device=card)
-        fn = (K.bsr_spmm_cuda if multi else
-              lambda *a: K.bsr_spmv_cuda(*a, valid_counts=vc))
+        fn = (lambda *a: (K.bsr_spmm_cuda if multi else K.bsr_spmv_cuda)(
+            *a, valid_counts=vc))
         plain = ref.ref_bsr_spmm if multi else ref.ref_bsr_spmv
     else:
         *args, cv = ops.sell_device_arrays(SELLBSR.from_bsr(bsr, 4, 8), card)
-        fn = (K.bsr_spmm_sell_cuda if multi else
-              lambda *a: K.bsr_spmv_sell_cuda(*a, cell_valid=cv))
+        fn = (lambda *a: (K.bsr_spmm_sell_cuda if multi else
+                          K.bsr_spmv_sell_cuda)(*a, cell_valid=cv))
         plain = (ref.ref_bsr_spmm_sell_perm if multi
                  else ref.ref_bsr_spmv_sell_perm)
     y = fn(*args, xb)
@@ -217,6 +217,106 @@ def test_spmv_ell_wrapper_needs_aligned_x(card):
     assert K.LAUNCHES["bsr_spmv_ell"] == before
 
 
+# ----------------------- bsr_spmm_ell / bsr_spmm_sell: the counted SpMM
+
+SPMM_K = [8, 16, 64]
+
+
+def _rhs(rng, x, k):
+    """A (.., n_bc, bs, k) RHS in place of the members' (.., n_bc, bs) x."""
+    return torch.as_tensor(
+        rng.standard_normal(tuple(x.shape) + (k,)).astype(np.float32),
+        device=x.device)
+
+
+@pytest.mark.parametrize("bs", REDESIGN_BS)
+@pytest.mark.parametrize("k", SPMM_K)
+@pytest.mark.parametrize("case", ["short", "long"])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_spmm_ell_counts_match_all_slot_plain(card, bs, k, case, stacked):
+    """Rows with 0 real slots, with no pad slot and (``long``) longer than
+    one 256-slot index batch and the ring; one member or three, each with
+    its own zero block."""
+    rng = np.random.default_rng(bs + k + len(case))
+    n_mem = 3 if stacked else 1
+    arrs = [torch.as_tensor(a, device=card)
+            for a in _ell_members(rng, bs, case, n_mem)]
+    if not stacked:
+        arrs = [a[0] for a in arrs]
+    idx, cols, counts, blocks, x = arrs
+    x = _rhs(rng, x, k)
+    before = K.LAUNCHES["bsr_spmm_ell"]
+    y = K.bsr_spmm_cuda(idx, cols, blocks, x, valid_counts=counts)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["bsr_spmm_ell"] == before + 1
+    _near(y, ref.ref_bsr_spmm(idx, cols, blocks, x))
+
+
+@pytest.mark.parametrize("bs", REDESIGN_BS)
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+@pytest.mark.parametrize("where", ["first_block", "real_column"])
+def test_spmm_ell_nonfinite_x_gives_plain_nan_pattern(card, bs, bad, where):
+    """A NaN or an Inf in one RHS column of ``x_blocks[0]`` (which every
+    pad slot reads) or of a real block: NaN in exactly the outputs the
+    all-slot sum makes NaN, rows without a pad slot included."""
+    rng = np.random.default_rng(bs)
+    idx, cols, counts, blocks, x = (torch.as_tensor(a[0], device=card)
+                                    for a in _ell_members(rng, bs, "short",
+                                                          1))
+    x = _rhs(rng, x, 16)
+    x[0 if where == "first_block" else 3, bs // 2, 9] = bad
+    y = K.bsr_spmm_cuda(idx, cols, blocks, x, valid_counts=counts)
+    torch.cuda.synchronize()
+    want = ref.ref_bsr_spmm(idx, cols, blocks, x)
+    assert bool((want.isnan() if where == "first_block"
+                 else ~want.isfinite()).any())
+    _near(y, want)
+
+
+def _spmm_args(card, layout, x):
+    """Small arguments of one SpMM kernel and its count keyword."""
+    if layout == "ell":
+        idx = torch.zeros((4, 3), dtype=torch.int32, device=card)
+        blocks = torch.zeros((5, 8, 8), device=card)
+        counts = torch.zeros(4, dtype=torch.int32, device=card)
+        return (K.bsr_spmm_cuda, (idx, idx, blocks, x), "valid_counts",
+                counts)
+    cb = torch.zeros(6, dtype=torch.int32, device=card)
+    ptr = torch.zeros(5, dtype=torch.int32, device=card)
+    perm = torch.arange(4, dtype=torch.int32, device=card)
+    blocks = torch.zeros((5, 8, 8), device=card)
+    return (K.bsr_spmm_sell_cuda, (cb, cb, ptr, perm, blocks, x),
+            "cell_valid", perm)
+
+
+@pytest.mark.parametrize("layout", ["ell", "sell"])
+def test_spmm_wrappers_need_their_counts(card, layout):
+    fn, args, key, counts = _spmm_args(card, layout,
+                                       torch.zeros((4, 8, 8), device=card))
+    with pytest.raises(TypeError, match=key):
+        fn(*args)
+    for bad in (counts.long(), counts[:2]):
+        with pytest.raises(ValueError, match=key):
+            fn(*args, **{key: bad})
+    y = fn(*args, **{key: counts})
+    torch.cuda.synchronize()
+    assert y.shape == (4, 8, 8) and not bool(y.any())
+
+
+@pytest.mark.parametrize("layout", ["ell", "sell"])
+def test_spmm_wrappers_need_aligned_x(card, layout):
+    """The kernels copy x segments 16 bytes at a time: a contiguous view of
+    x one float into its storage is refused, not launched."""
+    x = torch.zeros(4 * 8 * 8 + 1, device=card)[1:].view(4, 8, 8)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    fn, args, key, counts = _spmm_args(card, layout, x)
+    name = "bsr_spmm_ell" if layout == "ell" else "bsr_spmm_sell"
+    before = K.LAUNCHES[name]
+    with pytest.raises(ValueError, match="x_blocks must be 16-byte aligned"):
+        fn(*args, **{key: counts})
+    assert K.LAUNCHES[name] == before
+
+
 # ------------------ bsr_spmv_sell: real cells plus one pad cell per row
 
 def _sell_members(rng, bs, case, n_mem):
@@ -280,6 +380,32 @@ def test_spmv_sell_counts_match_all_cell_plain(card, bs, case, stacked):
 
 
 @pytest.mark.parametrize("bs", REDESIGN_BS)
+@pytest.mark.parametrize("k", SPMM_K)
+@pytest.mark.parametrize("case", ["short", "long"])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_spmm_sell_counts_match_all_cell_plain(card, bs, k, case, stacked):
+    """The SpMM kernel sums cell_valid real cells and one pad cell per row
+    whose range is longer: a row of pad cells only, a row with no pad cell,
+    rows that own no cells and (``long``) a row longer than one 256-cell
+    index batch and the ring; one member or three."""
+    rng = np.random.default_rng(bs + k + len(case))
+    n_mem = 3 if stacked else 1
+    arrs = [torch.as_tensor(a, device=card)
+            for a in _sell_members(rng, bs, case, n_mem)]
+    if not stacked:
+        arrs = [a[0] for a in arrs]
+    cb, cc, ptr, perm, blocks, x, valid = arrs
+    x = _rhs(rng, x, k)
+    before = K.LAUNCHES["bsr_spmm_sell"]
+    y = K.bsr_spmm_sell_cuda(cb, cc, ptr, perm, blocks, x, cell_valid=valid)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["bsr_spmm_sell"] == before + 1
+    _near(y, ref.ref_bsr_spmm_sell_perm(cb, cc, ptr, perm, blocks, x))
+    for yb, pb in ((y, perm),) if not stacked else zip(y, perm):
+        assert not bool(yb[pb[5:].long()].any())   # rows that own no cells
+
+
+@pytest.mark.parametrize("bs", REDESIGN_BS)
 @pytest.mark.parametrize("bad", [float("nan"), float("inf")])
 @pytest.mark.parametrize("multi", [False, True])
 def test_sell_nonfinite_x_gives_plain_nan_pattern(card, bs, bad, multi):
@@ -296,11 +422,11 @@ def test_sell_nonfinite_x_gives_plain_nan_pattern(card, bs, bad, multi):
     x[:, 0, bs // 2] = bad
     for args in ((cb, cc, ptr, perm, blocks, x),
                  tuple(t[1] for t in (cb, cc, ptr, perm, blocks, x))):
+        cv = valid if args[0].dim() == 2 else valid[1]
         if multi:
-            y = K.bsr_spmm_sell_cuda(*args)
+            y = K.bsr_spmm_sell_cuda(*args, cell_valid=cv)
             want = ref.ref_bsr_spmm_sell_perm(*args)
         else:
-            cv = valid if args[0].dim() == 2 else valid[1]
             y = K.bsr_spmv_sell_cuda(*args, cell_valid=cv)
             want = ref.ref_bsr_spmv_sell_perm(*args)
         torch.cuda.synchronize()

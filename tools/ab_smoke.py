@@ -64,8 +64,10 @@ def main() -> int:
                 key = ("kernel", r["kernel"], r["input"])
                 val = {"ms": r["ms"], "share_of_bound": r["share_of_bound"]}
             elif "plan" in r:
-                key = ("plan", r["plan"], r["input"])
-                val = {"ms": r["execute_ms"]}
+                key = ("plan", r["plan"], " ".join(
+                    [r["input"]] + ([r["layout"]] if "layout" in r else [])))
+                val = {"ms": r["execute_ms"] if "execute_ms" in r
+                       else r["ms"]}
             else:
                 continue
             rows.setdefault(key, {})[f"{i}_{arm}"] = val
