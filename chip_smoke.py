@@ -61,7 +61,10 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      the port never calls; each row names its call)
      and the bound on an H100: the larger of bytes / 3.35 TB/s and fp32
      operations / 67 TFLOP/s, operations counted on real tokens (moe) and
-     on the causal half (flash). Each of the four SpMV/SpMM kernels is also
+     on the causal half (flash); flash runs on the TF32 tensor cores, so
+     its operation time is passes x operations / 494.7 TFLOP/s (3 passes
+     for float32 operands, split TF32), with the fp32 bound beside it as
+     ``bound_ms_fp32``. Each of the four SpMV/SpMM kernels is also
      run with an Inf and then a NaN in ``x_blocks[0]`` (which their pad
      slots and cells read; the operands are shape-bucketed, so the SELL
      bucket-pad cells of the last sorted row are among them) and must give
@@ -88,6 +91,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores
+TF32_FLOP_PER_S = 494.7e12         # H100 SXM dense TF32 tensor cores
+TF32_PASSES = 3                    # split TF32: TF32 products per fp32 one
 TOL = 1e-4                         # relative to max|ref|
 K_RHS = 8
 CHUNK_BYTES = 256 << 20            # device-side checks work in chunks
@@ -238,10 +243,11 @@ def kernel_args(st, multi: bool):
              idx, count))
 
 
-def bound(nbytes: float, flops: float):
-    """(bound_ms, bound_by): the larger of the byte and operation times."""
+def bound(nbytes: float, flops: float, flop_per_s: float = FP32_FLOP_PER_S):
+    """(bound_ms, bound_by): the larger of the byte and operation times,
+    the operations at ``flop_per_s``."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -750,9 +756,12 @@ def max_diff(a, b):
 
 
 def kernel_row(name: str, inp_name: str, cuda_fn, plain_fn, lib_fn, nbytes,
-               flops, timer, extra: dict) -> dict:
+               flops, timer, extra: dict, tc_passes: int = 0) -> dict:
     """One kernel x input row: the kernel against its plain version over
-    the whole output, times, yardstick, bound."""
+    the whole output, times, yardstick, bound. A kernel on the TF32
+    tensor cores (``tc_passes`` TF32 products per fp32 product) is bound by
+    ``tc_passes * flops`` at the TF32 peak; its fp32 bound is kept beside
+    as ``bound_ms_fp32``."""
     y_k = cuda_fn()
     y_p = plain_fn()
     d, m = max_diff(y_k, y_p)
@@ -764,6 +773,9 @@ def kernel_row(name: str, inp_name: str, cuda_fn, plain_fn, lib_fn, nbytes,
     plain_ms = timer(plain_fn, iters=5, warmup=1)
     lib_ms = timer(lib_fn, iters=5, warmup=1)
     b_ms, b_by = bound(nbytes, flops)
+    if tc_passes:
+        extra = {**extra, "bound_ms_fp32": b_ms}
+        b_ms, b_by = bound(nbytes, tc_passes * flops, TF32_FLOP_PER_S)
     rec = {"kernel": name, "input": inp_name, "max_abs_err": d,
            "rel_err_vs_plain": d / max(m, 1e-30), "ms": ms,
            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
@@ -970,7 +982,7 @@ def run_flash(device: str, dims: dict, seed: int, timer) -> tuple:
             lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                    is_causal=True),
             4 * bh * s * dd * 4, 4.0 * bh * s * s * dd / 2, timer,
-            {"bh": bh, "s": s, "d": dd}))
+            {"bh": bh, "s": s, "d": dd}, tc_passes=TF32_PASSES))
     return {"flash_attention": recs}, main_launches
 
 
@@ -1036,9 +1048,15 @@ def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, gemm_n: int,
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
-            "input": head["input"]})
+            "input": head["input"],
+            **({"bound_ms_fp32": head["bound_ms_fp32"]}
+               if "bound_ms_fp32" in head else {})})
     check(sorted(k["name"] for k in kernels) == sorted(TPU_KERNELS),
           "every kernel has a row")
+    over = [(r["kernel"], r["input"], r["share_of_bound"])
+            for recs in results.values() for r in recs
+            if r["share_of_bound"] > 1.0]
+    check(not over, f"no kernel beats its bound: {over}")
     return {"kernels": kernels}
 
 

@@ -25,7 +25,6 @@ from . import ref
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 
 MAX_HEAD_DIM = 256      # the kernel's shared memory holds q, k, v tiles
-CTA_ROWS = 64           # q rows per CTA (kTile in the .cu)
 MAX_GRID = 2**31 - 1    # CTAs in the kernel's flat grid over (q tile, bh)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -36,6 +35,12 @@ _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P]
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def cta_rows(d: int) -> int:
+    """q rows per CTA at head dim ``d`` (``dispatch`` in the .cu): two
+    warpgroups of 64 rows up to D = 128, one above."""
+    return 128 if d <= 128 else 64
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -77,9 +82,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d % 4 or not 4 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"{name}: head dim {d} is not a multiple of 4 up "
                          f"to {MAX_HEAD_DIM}")
-    if -(-s // CTA_ROWS) * bh > MAX_GRID:
-        raise ValueError(f"{name}: {bh} (batch x heads) x {-(-s // CTA_ROWS)}"
-                         f" q tiles exceed the grid's {MAX_GRID} CTAs")
+    n_tiles = -(-s // cta_rows(d))
+    if n_tiles * bh > MAX_GRID:
+        raise ValueError(f"{name}: {bh} (batch x heads) x {n_tiles} q tiles "
+                         f"exceed the grid's {MAX_GRID} CTAs")
     out = torch.empty((bh, s, d), dtype=torch.float32, device=q.device)
     if bh == 0 or s == 0:
         return out

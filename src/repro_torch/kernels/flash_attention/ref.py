@@ -10,6 +10,8 @@ this runs only to check the kernel; keep
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 CHUNK_BYTES = 1 << 30
@@ -30,3 +32,21 @@ def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             scores = scores.masked_fill(~mask, float("-inf"))
         out[sl] = torch.softmax(scores, dim=-1) @ v[sl].float()
     return out
+
+
+def to_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32's 10 mantissa bits, to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32`` rounds it; non-finite
+    values pass unchanged."""
+    bits = x.float().contiguous().view(torch.int32)
+    rounded = (bits + 0x1000) & ~0x1FFF
+    return torch.where(torch.isfinite(x), rounded, bits).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x = hi + lo`` with both parts TF32 (``hi = to_tf32(x)``, ``lo =
+    to_tf32(x - hi)``): the split the kernel applies to each float32
+    operand, so that ``a.b ~ hi_a.hi_b + hi_a.lo_b + lo_a.hi_b`` keeps
+    about fp32 accuracy on TF32 tensor cores. Only the tests call it."""
+    hi = to_tf32(x)
+    return hi, to_tf32(x.float() - hi)

@@ -617,8 +617,9 @@ def _plan_matvec_bucket(members: List, schedule: Schedule, backend: str, *,
 # ---------------------------------------------------------------------------
 
 # mode -> (CUDA kernel wrapper, plain PyTorch version, device arguments,
-# the count the wrapper alone takes as a keyword, or None); both take the
-# arguments with an optional leading member axis.
+# the leaf the wrapper alone takes as a keyword, or None: the pairs'
+# per-block counts, spadd's per-member sentinels); both take the arguments
+# with an optional leading member axis.
 _PAIROP_FNS = {
     "pairs": (GK.bsr_spgemm_pairs_cuda, GR.ref_pair_gemm,
               ("pair_a", "pair_b", "a_blocks", "b_blocks"), "pair_counts"),
@@ -626,7 +627,7 @@ _PAIROP_FNS = {
               ("cell_a", "cell_b", "cell_ptr", "a_blocks", "b_blocks"),
               None),
     "spadd": (AK.bsr_spadd_cuda, AR.ref_block_union_add,
-              ("ia", "ib", "a_blocks", "b_blocks"), None),
+              ("ia", "ib", "a_blocks", "b_blocks"), "sentinels"),
 }
 
 
@@ -634,22 +635,24 @@ def pairop_args(dev: Dict[str, torch.Tensor], mode: str,
                 n_out: Optional[int] = None
                 ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
     """The mode's kernel arguments from a prepared entry's device leaves:
-    the positional ones both versions take, and the keyword count only the
+    the positional ones both versions take, and the keyword leaf only the
     CUDA wrapper takes. ``n_out`` keeps only the first ``n_out`` output
     blocks of a single (unstacked) plan: the plan returns the output cut to
     the real block count, so the bucket-pad blocks past it are not computed
     at all."""
-    _, _, names, count = _PAIROP_FNS[mode]
+    _, _, names, key = _PAIROP_FNS[mode]
     args = [dev[k] for k in names]
-    kw = {count: dev[count]} if count else {}
+    kw = {key: dev[key]} if key else {}
     if n_out is not None:
-        # the leading index arrays and the counts are per output block
-        # (pairs, spadd), or the pointer is (cells: n_out + 1 entries)
+        # the leading index arrays and the pair counts are per output block
+        # (pairs, spadd; spadd's sentinels are per member), or the pointer
+        # is (cells: n_out + 1 entries)
         if mode == "cells":
             args[2] = args[2][: n_out + 1]
         else:
             args[0], args[1] = args[0][:n_out], args[1][:n_out]
-            kw = {k: v[:n_out] for k, v in kw.items()}
+        if mode == "pairs":
+            kw[key] = kw[key][:n_out]
     return args, kw
 
 
@@ -970,6 +973,12 @@ def _spadd_host_products(a, b, schedule: Schedule):
             "n_c": int(ia.size), "out_shape": a.shape, "bs": bs}
 
 
+def _sentinels(h: Dict) -> np.ndarray:
+    """A member's ``(zero_a, zero_b)``: every block at or past them is
+    +0.0 (the sentinel, then the bucket-pad blocks)."""
+    return np.array([h["zero_a"], h["zero_b"]], np.int32)
+
+
 def _prepare_spadd(a, b, schedule: Schedule,
                    store: Optional[PreparedStore], shape_bucket: bool,
                    device: torch.device, operand_key: Optional[str] = None):
@@ -998,7 +1007,7 @@ def _build_spadd(a, b, schedule: Schedule, shape_bucket: bool,
         h["b_blocks"] = _pad_rows(h["b_blocks"],
                                   bucket_edge(h["b_blocks"].shape[0]), 0.0)
     dev = {"ia": ia, "ib": ib, "a_blocks": h["a_blocks"],
-           "b_blocks": h["b_blocks"]}
+           "b_blocks": h["b_blocks"], "sentinels": _sentinels(h)}
     return {"mode": "spadd",
             "dev": {k: _put(v, device) for k, v in dev.items()},
             "zero_a": h["zero_a"], "zero_b": h["zero_b"],
@@ -1052,6 +1061,7 @@ def _plan_spadd_bucket(members: List, schedule: Schedule, backend: str, *,
                                    edge_dims=ed),
             "b_blocks": _stack_pad([h["b_blocks"] for h in hs], 0.0,
                                    edge_dims=ed),
+            "sentinels": np.stack([_sentinels(h) for h in hs]),
         }
         return {"mode": "spadd",
                 "stacked": {k: _put(v, device) for k, v in stacked.items()},

@@ -32,7 +32,9 @@ from repro_torch.core import (BSR, CSR, ELLBSR, SELLBSR, Schedule,
 from repro_torch.core.synthetic import gen_zipf
 from repro_torch.kernels import common
 from repro_torch.kernels.bsr_spmv import kernel as K
+from repro_torch.kernels.bsr_spadd import kernel as AK
 from repro_torch.kernels.bsr_spgemm import kernel as GK
+from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.bsr_spmv import ops, ref
 from repro_torch.sparse import (PreparedStore, SparseTensor, content_key,
                                 plan, plan_bucket)
@@ -541,6 +543,8 @@ def _c_argtypes(source: str):
                 types.append(ctypes.c_void_p)
             elif param.startswith("long long "):
                 types.append(ctypes.c_longlong)
+            elif param.startswith("float "):
+                types.append(ctypes.c_float)
             else:
                 assert param.startswith("int "), param
                 types.append(ctypes.c_int)
@@ -567,6 +571,18 @@ def test_ctypes_argtypes_match_the_cu_signatures():
         v, m = spmv[f"bsr_spmv_{layout}"], spmv[f"bsr_spmm_{layout}"]
         assert v[:n_ptr] == m[:n_ptr] == [ctypes.c_void_p] * n_ptr
         assert m == v[:-2] + [ctypes.c_int] + v[-2:]
+
+
+@pytest.mark.parametrize("source,module", [("bsr_spadd", AK),
+                                           ("flash_attention", FK)])
+def test_spadd_and_flash_argtypes_match_the_cu_signatures(source, module):
+    """As above for the one entry point of ``bsr_spadd.cu`` (its
+    ``sentinels`` third) and of ``flash_attention.cu``."""
+    sigs = _c_argtypes(source)
+    assert list(sigs) == [source]
+    assert sigs[source] == module._ARGTYPES
+    if source == "bsr_spadd":
+        assert sigs[source][:6] == [ctypes.c_void_p] * 6
 
 
 def test_spmv_wrapper_needs_its_valid_counts():

@@ -24,6 +24,7 @@ from repro_torch.core.synthetic import gen_zipf
 from repro_torch.kernels.bsr_spmv import kernel as K
 from repro_torch.kernels.bsr_spmv import ops, ref
 from repro_torch.kernels.bsr_spadd import kernel as AK
+from repro_torch.kernels.bsr_spadd import ref as AR
 from repro_torch.kernels.bsr_spgemm import kernel as GK
 from repro_torch.kernels.bsr_spgemm import ref as GR
 from repro_torch.kernels.flash_attention import kernel as FK
@@ -650,6 +651,130 @@ def test_pairop_plan_and_bucket_on_card(card, op, layout):
                                    rtol=1e-4, atol=1e-4)
 
 
+def _spadd_member(rng, bs, n_a, n_b, n_both, n_pad, a_pad, b_pad):
+    """ia/ib over an A of n_a real tiles and a B of n_b (each followed by
+    its +0.0 sentinel and a_pad / b_pad +0.0 bucket-pad tiles): n_both C
+    blocks in both, the rest of A's and B's tiles alone, then n_pad C
+    blocks that point past both sentinels (bucket-pad blocks)."""
+    a = np.zeros((n_a + 1 + a_pad, bs, bs), np.float32)
+    b = np.zeros((n_b + 1 + b_pad, bs, bs), np.float32)
+    a[:n_a] = rng.standard_normal((n_a, bs, bs))
+    b[:n_b] = rng.standard_normal((n_b, bs, bs))
+    pa, pb = rng.permutation(n_a), rng.permutation(n_b)
+    ia = np.concatenate([pa[:n_both], pa[n_both:],
+                         np.full(n_b - n_both, n_a),
+                         rng.integers(n_a, n_a + 1 + a_pad, n_pad)])
+    ib = np.concatenate([pb[:n_both], np.full(n_a - n_both, n_b),
+                         pb[n_both:], rng.integers(n_b, n_b + 1 + b_pad,
+                                                   n_pad)])
+    return (ia.astype(np.int32), ib.astype(np.int32), a, b,
+            np.array([n_a, n_b], np.int32))
+
+
+def _spadd_inputs(bs, members, seed):
+    """One member, or ``members`` stacked as the bucket builder stacks
+    them (each padded with its own sentinels and +0.0 tiles), on the
+    host."""
+    rng = np.random.default_rng(seed)
+    ms = [_spadd_member(rng, bs, 7 + 3 * i, 5 + 2 * i, 3 + i, 2 + i, i, 2)
+          for i in range(members)]
+    if members == 1:
+        return ms[0]
+    n_c = max(m[0].size for m in ms)
+    n_a = max(m[2].shape[0] for m in ms)
+    n_b = max(m[3].shape[0] for m in ms)
+    ia = np.stack([np.pad(m[0], (0, n_c - m[0].size),
+                          constant_values=m[4][0]) for m in ms])
+    ib = np.stack([np.pad(m[1], (0, n_c - m[1].size),
+                          constant_values=m[4][1]) for m in ms])
+    a = np.stack([np.pad(m[2], ((0, n_a - m[2].shape[0]), (0, 0), (0, 0)))
+                  for m in ms])
+    b = np.stack([np.pad(m[3], ((0, n_b - m[3].shape[0]), (0, 0), (0, 0)))
+                  for m in ms])
+    return ia, ib, a, b, np.stack([m[4] for m in ms])
+
+
+def _real_tiles(blocks, sent, col):
+    """(member index or Ellipsis, real tile slice) of each member: the
+    tiles before its sentinel ``sent[..., col]``."""
+    if blocks.ndim == 3:
+        return [(Ellipsis, slice(0, int(sent[col])))]
+    return [(m, slice(0, int(sent[m, col]))) for m in range(len(blocks))]
+
+
+def _same_bits(x, y):
+    """Equal bit for bit; NaN where the other is NaN."""
+    nan = x.isnan()
+    return (bool((nan == y.isnan()).all())
+            and torch.equal(x[~nan].view(torch.int32),
+                            y[~nan].view(torch.int32)))
+
+
+@pytest.mark.parametrize("bs", [8, 32, 96, 128, 256])
+@pytest.mark.parametrize("members", [1, 3])
+def test_spadd_kernel_matches_plain_bit_for_bit(card, bs, members):
+    """Blocks in A only, B only and both, and bucket-pad blocks past both
+    sentinels, each member with its own sentinels."""
+    ia, ib, a, b, sent = (torch.as_tensor(x, device=card)
+                          for x in _spadd_inputs(bs, members, bs + members))
+    before = AK.LAUNCHES["bsr_spadd"]
+    c = AK.bsr_spadd_cuda(ia, ib, a, b, sentinels=sent)
+    torch.cuda.synchronize()
+    assert AK.LAUNCHES["bsr_spadd"] == before + 1
+    assert _same_bits(c, AR.ref_block_union_add(ia, ib, a, b))
+    pad = (ia >= sent[..., :1]) & (ib >= sent[..., 1:])
+    assert bool(pad.any()) and bool((c[pad] == 0).all())
+    assert not bool(torch.signbit(c[pad]).any())
+
+
+@pytest.mark.parametrize("members", [1, 3])
+def test_spadd_negative_zero_tile_gives_plus_zero(card, members):
+    """-0.0 in every real A tile against a missing B: -0.0 + 0.0 is +0.0,
+    as in the plain version; a copy would keep -0.0."""
+    ia, ib, a, b, sent = _spadd_inputs(32, members, 5)
+    for m, real in _real_tiles(a, sent, 0):
+        a[m][real, 0, :4] = -0.0
+    a_only = (ia < sent[..., :1]) & (ib >= sent[..., 1:])
+    assert a_only.any()
+    ia, ib, a, b, sent = (torch.as_tensor(x, device=card)
+                          for x in (ia, ib, a, b, sent))
+    c = AK.bsr_spadd_cuda(ia, ib, a, b, sentinels=sent)
+    torch.cuda.synchronize()
+    assert _same_bits(c, AR.ref_block_union_add(ia, ib, a, b))
+    head = c[torch.as_tensor(a_only, device=card)][:, 0, :4]
+    assert bool((head == 0).all()) and not bool(torch.signbit(head).any())
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf"), -float("inf")])
+@pytest.mark.parametrize("members", [1, 3])
+def test_spadd_nonfinite_tiles_match_plain(card, bad, members):
+    """NaN and Inf in A tiles reach C where the plain version puts them,
+    alone and against a B tile (Inf + -Inf is NaN there too)."""
+    ia, ib, a, b, sent = _spadd_inputs(16, members, 9)
+    for m, real in _real_tiles(a, sent, 0):
+        a[m][real][:4, 1, 2] = bad
+    for m, real in _real_tiles(b, sent, 1):
+        b[m][real][:2, 1, 2] = -bad
+    ia, ib, a, b, sent = (torch.as_tensor(x, device=card)
+                          for x in (ia, ib, a, b, sent))
+    c = AK.bsr_spadd_cuda(ia, ib, a, b, sentinels=sent)
+    torch.cuda.synchronize()
+    want = AR.ref_block_union_add(ia, ib, a, b)
+    assert not bool(want.isfinite().all())
+    assert _same_bits(c, want)
+
+
+def test_spadd_wrapper_needs_its_sentinels_on_card(card):
+    ia, ib, a, b, sent = (torch.as_tensor(x, device=card)
+                          for x in _spadd_inputs(8, 1, 0))
+    with pytest.raises(TypeError, match="sentinels"):
+        AK.bsr_spadd_cuda(ia, ib, a, b)
+    with pytest.raises(ValueError, match="sentinels"):
+        AK.bsr_spadd_cuda(ia, ib, a, b, sentinels=sent.long())
+    with pytest.raises(ValueError, match="on"):
+        AK.bsr_spadd_cuda(ia, ib, a, b, sentinels=sent.cpu())
+
+
 # ------------------------------------------------ moe_gmm / flash_attention
 
 def _assert_near(got, want, tol=1e-4):
@@ -727,6 +852,46 @@ def test_flash_kernel_batch_heads_past_65535(card, causal):
                                   block_k=16)
     torch.cuda.synchronize()
     _assert_near(out, FR.ref_attention(q, k, v, causal=causal))
+
+
+def test_flash_kernel_long_sequence(card):
+    """S = 4096 at D = 128, the main path's first input: 32 q tiles of
+    128 rows, 256 chunks of 16 kv rows in the last."""
+    g = torch.Generator(device=card).manual_seed(11)
+    q, k, v = (torch.randn((2, 4096, 128), generator=g, device=card)
+               for _ in range(3))
+    out = FK.flash_attention_cuda(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _assert_near(out, FR.ref_attention(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_large_scores(card, causal):
+    """q and k scaled by 8, so the scores reach +-60: the online rescale
+    works on large max jumps between chunks, where single-pass TF32 is
+    off by 1e-2 * max|ref|."""
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.as_tensor(rng.standard_normal((3, 512, 128)),
+                               dtype=torch.float32, device=card)
+               for _ in range(3))
+    q, k = q * 8, k * 8
+    out = FK.flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    s = (q @ k.transpose(1, 2)) / 128 ** 0.5
+    assert float(s.abs().max()) > 40
+    _assert_near(out, FR.ref_attention(q, k, v, causal=causal))
+
+
+def test_flash_kernel_bf16_long(card):
+    """bfloat16 at D = 128, S = 1024: one TF32 pass for Q K^T (exact
+    operands), two for P V, against the plain version on the same bf16
+    inputs."""
+    g = torch.Generator(device=card).manual_seed(12)
+    q, k, v = (torch.randn((4, 1024, 128), generator=g, device=card)
+               .to(torch.bfloat16) for _ in range(3))
+    out = FK.flash_attention_cuda(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _assert_near(out, FR.ref_attention(q, k, v, causal=True))
 
 
 def test_moe_and_flash_wrappers_raise(card):

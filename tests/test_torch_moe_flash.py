@@ -30,6 +30,7 @@ from repro_torch.core import (H100_SXM, Schedule, partition_imbalance,
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_cuda,
                                                  ref_attention)
+from repro_torch.kernels.flash_attention.ref import split_tf32, to_tf32
 from repro_torch.kernels.moe_gmm import (moe_gmm, moe_gmm_cuda, ref_gmm,
                                          route_and_pad)
 from repro_torch.selector import ScheduleCache, routing_fingerprint
@@ -313,6 +314,76 @@ def test_flash_contract_and_guards():
              device=CPU).execute(q, q[:, :64], q)
     with pytest.raises(ValueError, match="no planned operands"):
         plan("flash_attention", (q,), device=CPU)
+
+
+# ------------------------------------------ split TF32 (the kernel's math)
+
+def test_to_tf32_rounds_like_cvt_rna():
+    """Ten mantissa bits, to nearest with ties away from zero; the low 13
+    bits of the result are zero and non-finite values pass."""
+    x = torch.tensor([1.0, 1 + 2**-11, 1 + 3 * 2**-11, -(1 + 2**-11),
+                      1 + 2**-12, -0.0, float("inf"), float("nan")])
+    got = to_tf32(x)
+    want = [1.0, 1 + 2**-10, 1 + 2**-9, -(1 + 2**-10), 1.0, -0.0,
+            float("inf")]
+    assert got[:7].tolist() == want and bool(got[7].isnan())
+    assert bool(torch.signbit(got[5]))
+    r = to_tf32(torch.randn(4096, generator=torch.Generator().manual_seed(0)))
+    assert not bool((r.view(torch.int32) & 0x1FFF).any())
+
+
+def test_split_tf32_keeps_about_fp32_precision():
+    """hi + lo equals x to about 2^-22 relative, with both parts TF32."""
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(8192) * 1e3,
+                        dtype=torch.float32)
+    hi, lo = split_tf32(x)
+    for part in (hi, lo):
+        assert not bool((part.view(torch.int32) & 0x1FFF).any())
+    err = ((hi.double() + lo.double()) - x.double()).abs()
+    assert bool((err <= x.double().abs() * 2.0**-21).all())
+    assert bool(((hi.double() - x.double()).abs() >= err).all())
+
+
+def _float64_attention(q, k, v):
+    q, k, v = q.double(), k.double(), v.double()
+    s = q.shape[1]
+    scores = q @ k.transpose(1, 2) / q.shape[-1] ** 0.5
+    scores = scores.masked_fill(~torch.ones(s, s, dtype=torch.bool).tril(),
+                                float("-inf"))
+    return torch.softmax(scores, dim=-1) @ v
+
+
+def _tf32_attention(q, k, v, passes):
+    """Causal attention whose two products see their operands as the
+    kernel's TF32 tensor cores do: hi.hi (one pass), or lo.hi + hi.lo +
+    hi.hi (three); the products and sums in float64, so that only the
+    operand rounding shows."""
+    def product(a, b):
+        (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+        ah, al, bh, bl = (t.double() for t in (ah, al, bh, bl))
+        return ah @ bh if passes == 1 else al @ bh + ah @ bl + ah @ bh
+    s = q.shape[1]
+    scores = product(q, k.transpose(1, 2)) / q.shape[-1] ** 0.5
+    scores = scores.masked_fill(~torch.ones(s, s, dtype=torch.bool).tril(),
+                                float("-inf"))
+    return product(torch.softmax(scores, dim=-1).float(), v)
+
+
+@pytest.mark.parametrize("magnitude", [1.0, 8.0])
+def test_three_tf32_passes_keep_the_tolerance_one_misses(magnitude):
+    """Why the kernel splits: at (2, 256, 128), causal, single-pass TF32
+    misses 1e-4 * max|ref| against float64, three passes keep it. q and k
+    scaled by 8 put the scores near +-60, the online rescale's case."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.as_tensor(rng.standard_normal((2, 256, 128)),
+                               dtype=torch.float32) for _ in range(3))
+    q, k = q * magnitude, k * magnitude
+    ref = _float64_attention(q, k, v)
+    scale = float(ref.abs().max())
+    one, three = (float((_tf32_attention(q, k, v, p) - ref).abs().max())
+                  / scale for p in (1, 3))
+    assert one > 1e-4 > three
+    assert three < 1e-5
 
 
 # ------------------------------------------------------- registry, decode

@@ -261,6 +261,91 @@ def test_pairs_wrapper_needs_its_counts():
     torch.testing.assert_close(c, gref.ref_pair_gemm(pa, pb, ab, bb))
 
 
+def test_spadd_wrapper_needs_its_sentinels():
+    """The sentinels are required, on CPU tensors as on the card, and must
+    be int32 of shape (2,), or (B, 2) for a stacked bucket."""
+    (a, _), (b, _) = _sparse(64, 64, 0.1, 3), _sparse(64, 64, 0.1, 4)
+    prep = ops_builtin._build_spadd(a, b, _scheds("ell", 16)[0], False,
+                                    torch.device(CPU))
+    (ia, ib, ab, bb), kw = ops_builtin.pairop_args(prep["dev"], "spadd")
+    assert list(kw) == ["sentinels"]
+    with pytest.raises(TypeError, match="sentinels"):
+        AK.bsr_spadd_cuda(ia, ib, ab, bb)
+    sent = kw["sentinels"]
+    for bad in (sent.long(), sent[:1], sent[None], sent.float()):
+        with pytest.raises(ValueError, match="sentinels"):
+            AK.bsr_spadd_cuda(ia, ib, ab, bb, sentinels=bad)
+    with pytest.raises(ValueError, match="sentinels"):   # stacked: (B, 2)
+        AK.bsr_spadd_cuda(ia[None], ib[None], ab[None], bb[None],
+                          sentinels=sent)
+    c = AK.bsr_spadd_cuda(ia, ib, ab, bb, **kw)   # CPU: plain
+    assert torch.equal(c, ab[ia.long()] + bb[ib.long()])
+    c = AK.bsr_spadd_cuda(ia[None], ib[None], ab[None], bb[None],
+                          sentinels=sent[None])
+    assert torch.equal(c[0], ab[ia.long()] + bb[ib.long()])
+
+
+def _assert_sentinel_tiles_zero(ia, ib, a_blocks, b_blocks, sentinels):
+    """Every index at or past a member's sentinel points at an all-+0.0
+    tile (no -0.0), and so does every tile from the sentinel on; returns
+    how many indices point there."""
+    za, zb = (int(z) for z in sentinels)
+    n_past = 0
+    for idx, blocks, z in ((ia, a_blocks, za), (ib, b_blocks, zb)):
+        past = idx[idx >= z]
+        assert (past < blocks.shape[0]).all()
+        tail = blocks[z:]
+        assert tail.shape[0] >= 1
+        assert (tail == 0).all() and not np.signbit(tail).any()
+        n_past += past.size
+    return n_past
+
+
+@pytest.mark.parametrize("shape_bucket", [False, True])
+def test_spadd_sentinel_leaves_match_symbolic(shape_bucket):
+    """Single-plan and bucket entries carry each member's ``(zero_a,
+    zero_b)`` (the real block counts of A and B, the symbolic phase's
+    sentinels), on the host build and on the store's cached build."""
+    pairs = _pairs3("add")
+    s, _ = _scheds("ell", 16)
+    dev = torch.device(CPU)
+    n_past = 0
+    for (a, _), (b, _) in pairs:
+        ba, bb = BSR.from_csr(a, 16), BSR.from_csr(b, 16)
+        built = ops_builtin._build_spadd(a, b, s, shape_bucket, dev)
+        store = PreparedStore()
+        plan("spadd", (a, b), schedule=s, device=CPU, store=store,
+             shape_bucket=shape_bucket)
+        (cached, _), = store._entries.values()
+        for entry in (built, cached):
+            d = {k: t.numpy() for k, t in entry["dev"].items()}
+            assert d["sentinels"].dtype == np.int32
+            np.testing.assert_array_equal(d["sentinels"],
+                                          [ba.n_blocks, bb.n_blocks])
+            assert (entry["zero_a"], entry["zero_b"]) == (ba.n_blocks,
+                                                          bb.n_blocks)
+            n_past += _assert_sentinel_tiles_zero(
+                d["ia"], d["ib"], d["a_blocks"], d["b_blocks"],
+                d["sentinels"])
+    mats = [(a, b) for (a, _), (b, _) in pairs]
+    store = PreparedStore()
+    bucket = plan_bucket("spadd", mats, s, device=CPU, store=store,
+                         shape_bucket=shape_bucket,
+                         member_keys=[content_key(m) for p in mats
+                                      for m in p])
+    (cached, _), = store._entries.values()
+    st = {k: t.numpy() for k, t in cached["stacked"].items()}
+    assert bucket.operands[0] is cached
+    assert st["sentinels"].shape == (3, 2)
+    for m, (a, b) in enumerate(mats):
+        want = [BSR.from_csr(a, 16).n_blocks, BSR.from_csr(b, 16).n_blocks]
+        np.testing.assert_array_equal(st["sentinels"][m], want)
+        n_past += _assert_sentinel_tiles_zero(
+            st["ia"][m], st["ib"][m], st["a_blocks"][m], st["b_blocks"][m],
+            st["sentinels"][m])
+    assert n_past > 0
+
+
 # The bucket tests below execute JAX buckets at bs=32: the JAX package's own
 # bucket tests (bs=16, same shapes) assert that their stacked program is
 # traced exactly once, which a same-shape compile earlier in the process
@@ -503,8 +588,11 @@ def _meta_args(name):
         return (GK.bsr_spgemm_cells_cuda, GK,
                 (_meta((9,), i32), _meta((9,), i32), _meta((7,), i32))
                 + blocks)
-    return (AK.bsr_spadd_cuda, AK,
-            (_meta((6,), i32), _meta((6,), i32)) + blocks)
+    def spadd(ia, ib, a, b):   # the sentinels follow ia's leading axes
+        return AK.bsr_spadd_cuda(
+            ia, ib, a, b,
+            sentinels=_meta(tuple(ia.shape[:-1]) + (2,), i32))
+    return (spadd, AK, (_meta((6,), i32), _meta((6,), i32)) + blocks)
 
 
 @pytest.mark.parametrize("name", ["bsr_spgemm_pairs", "bsr_spgemm_cells",
