@@ -42,7 +42,12 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      ``ScheduleCache`` and one ``PreparedStore``, ``H100_SXM``), then one
      prefill ``plan("moe_gmm")`` on 4096 tokens routed top-1 with
      p_e proportional to 1/(e+1), its tile from ``moe_tile_schedule``;
-     every output within ``1e-4 * max|ref|`` of the plain version;
+     every output within ``1e-4 * max|ref|`` of the plain version; then,
+     at the decode (tick 0) and the prefill input, a NaN and +-Inf in the
+     weights (of an empty expert where there is one, and of the expert
+     with the most tokens) and a value and a NaN in pad rows of x, set in
+     place and restored: the kernel's NaN, +Inf and -Inf masks must equal
+     the plain version's;
   6. flash main path: ``plan("flash_attention", (), causal=True)`` on
      mixtral's prefill attention (48 q heads, 8 kv heads expanded to 48 by
      the caller, D=128, float32) at B=1, S=4096 and at B=8, S=1024, each
@@ -61,10 +66,12 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      the port never calls; each row names its call)
      and the bound on an H100: the larger of bytes / 3.35 TB/s and fp32
      operations / 67 TFLOP/s, operations counted on real tokens (moe) and
-     on the causal half (flash); flash runs on the TF32 tensor cores, so
-     its operation time is passes x operations / 494.7 TFLOP/s (3 passes
-     for float32 operands, split TF32), with the fp32 bound beside it as
-     ``bound_ms_fp32``. Each of the four SpMV/SpMM kernels is also
+     on the causal half (flash); moe and flash run on the TF32 tensor
+     cores, so their operation time is passes x operations / 494.7
+     TFLOP/s (3 passes for float32 operands, split TF32), with the fp32
+     bound beside it as ``bound_ms_fp32``; the moe rows also give the
+     tiles' live rows and the share of rows the kernel computes. Each of
+     the four SpMV/SpMM kernels is also
      run with an Inf and then a NaN in ``x_blocks[0]`` (which their pad
      slots and cells read; the operands are shape-bucketed, so the SELL
      bucket-pad cells of the last sorted row are among them) and must give
@@ -789,9 +796,13 @@ def moe_row(inp_name: str, x, te, w, tile_m: int, n_real: int, device: str,
             timer) -> dict:
     """The grouped-GEMM row at one routed input. Bytes: x, every weight
     matrix of an expert that owns a tile, out and tile_expert once; FLOP
-    on the real tokens only (2 * T_real * K * N), never on pad rows. The
-    yardstick is one ``torch.bmm`` over the tiles with their expert
-    weights gathered beforehand (outside the timed call)."""
+    on the real tokens only (2 * T_real * K * N), never on pad rows; the
+    kernel runs float32 products as split TF32 (3 passes) on the tensor
+    cores, so the operation bound is TF32's, the fp32 one beside it. The
+    row also gives the tiles' live rows (``live_row_ends``, summed) and the
+    share of rows the kernel runs as products (``computed_rows``). The
+    yardstick is one ``torch.bmm`` over the tiles with their expert weights
+    gathered beforehand (outside the timed call)."""
     import torch
     from repro_torch.kernels.moe_gmm import kernel as MK
     from repro_torch.kernels.moe_gmm import ref as MR
@@ -804,15 +815,88 @@ def moe_row(inp_name: str, x, te, w, tile_m: int, n_real: int, device: str,
     xt = x.view(n_tiles, tile_m, k)
     experts = len(np.unique(te.cpu().numpy()))
     nbytes = (m * k + experts * k * n + m * n) * 4 + te.numel() * 4
+    live = MR.live_row_ends(te, x, tile_m).tolist()
     rec = kernel_row(
         "moe_gmm", inp_name,
         lambda: MK.moe_gmm_cuda(te, x, w, tile_m=tile_m),
         lambda: MR.ref_gmm(te, x, w, tile_m=tile_m),
         lambda: torch.bmm(xt, gathered), nbytes, 2.0 * n_real * k * n, timer,
         {"tile_m": tile_m, "rows": m, "real_rows": n_real,
-         "padded_row_share": 1.0 - n_real / m})
+         "padded_row_share": 1.0 - n_real / m, "live_rows": sum(live),
+         "computed_row_share": MK.computed_rows(live, tile_m) / m},
+        tc_passes=TF32_PASSES)
     del gathered
     return rec
+
+
+def moe_nonfinite_check(inp_name: str, x, te, w, tile_m: int,
+                        device: str) -> None:
+    """Non-finite operands at full width. In place, and restored before the
+    checks: a NaN in the weights of an empty expert (else of the expert
+    with the fewest tokens) and a +Inf and a -Inf in those of the expert
+    with the most tokens; in a copy of x, a value in a pad row of that
+    expert's tile and a NaN in a pad row of another tile. The kernel's
+    NaN, +Inf and -Inf masks must equal the plain version's, its finite
+    entries lie within ``TOL * max|plain|``."""
+    import torch
+    from repro_torch.kernels.moe_gmm import kernel as MK
+    from repro_torch.kernels.moe_gmm import ref as MR
+    x = np.array(x, np.float32)
+    te = np.asarray(te)
+    n_e, k, n = w.shape
+    real = np.abs(x).sum(axis=1) > 0              # the routed tokens' rows
+    tile_of_row = np.repeat(te, tile_m)
+    per_expert = np.bincount(tile_of_row[real], minlength=n_e)
+    e1 = int(np.argmax(per_expert))
+    empty = [e for e in range(n_e) if per_expert[e] == 0]
+    e0 = empty[0] if empty else min((e for e in range(n_e) if e != e1),
+                                    key=lambda e: per_expert[e])
+
+    def pad_rows(e):
+        return np.flatnonzero((tile_of_row == e) & ~real)
+
+    check(pad_rows(e1).size > 5, f"moe non-finite {inp_name}: pad rows")
+    r_val = int(pad_rows(e1)[5])
+    e_nan = next((e for e in empty[1:] + [e0] + list(range(n_e))
+                  if e != e1 and pad_rows(e).size > 20), None)
+    check(e_nan is not None, f"moe non-finite {inp_name}: a second tile")
+    r_nan = int(pad_rows(e_nan)[20])
+    # +Inf and -Inf where e1's first token is positive: both signs reach
+    # its row
+    pos = np.flatnonzero(x[np.flatnonzero(real & (tile_of_row == e1))[0]]
+                         > 0)
+    k1, k2 = int(pos[len(pos) // 6]), int(pos[2 * len(pos) // 3])
+    x[r_val, 3] = 1.5
+    x[r_nan, 8] = np.nan
+    spots = [(e0, 5, 7, float("nan")), (e1, k1, 300 % n, float("inf")),
+             (e1, k2, 9000 % n, float("-inf"))]
+    saved = [w[e, kk, nn].clone() for e, kk, nn, _ in spots]
+    for e, kk, nn, v in spots:
+        w[e, kk, nn] = v
+    xd, ted = (torch.as_tensor(a, device=device) for a in (x, te))
+    out = MK.moe_gmm_cuda(ted, xd, w, tile_m=tile_m)
+    plain = MR.ref_gmm(ted, xd, w, tile_m=tile_m)
+    live = MR.live_row_ends(ted, xd, tile_m).tolist()
+    sync(device)
+    for (e, kk, nn, _), old in zip(spots, saved):
+        w[e, kk, nn] = old
+    masks = {name: (int(fn(plain).sum()),
+                    bool(torch.equal(fn(out), fn(plain))))
+             for name, fn in (("nan", torch.isnan), ("posinf", torch.isposinf),
+                              ("neginf", torch.isneginf))}
+    fin = plain.isfinite()
+    d, m = max_diff(out[fin], plain[fin])
+    emit({"check": "moe_gmm non-finite w and pad rows", "input": inp_name,
+          "nan_expert": e0, "nan_expert_empty": bool(empty),
+          "inf_expert": e1, "nan_pad_row_tile_live_rows":
+          live[r_nan // tile_m], "masks": masks,
+          "rel_err_finite": d / max(m, 1e-30)})
+    check(all(same for _, same in masks.values()) and d <= TOL * m,
+          f"moe non-finite {inp_name}: masks {masks}, {d:.3e} > {TOL} * "
+          f"{m:.3e}")
+    check(all(count > 0 for count, _ in masks.values()),
+          f"moe non-finite {inp_name}: NaN, +Inf and -Inf all reach the "
+          "output")
 
 
 def run_moe(device: str, dims: dict, seed: int, timer) -> tuple:
@@ -909,6 +993,11 @@ def run_moe(device: str, dims: dict, seed: int, timer) -> tuple:
             for tm, (x, te) in first.items()]
     recs.append(moe_row(f"prefill_{n_pre}_tm{sched.block_size}", x_pre,
                         te_pre, w, sched.block_size, n_pre, device, timer))
+    tm, (x, te) = next(iter(first.items()))          # tick 0
+    moe_nonfinite_check(f"decode_b{dims['batch']}_tm{tm}", x, te, w, tm,
+                        device)
+    moe_nonfinite_check(f"prefill_{n_pre}_tm{sched.block_size}", x_pre,
+                        te_pre, w, sched.block_size, device)
     del w
     return {"moe_gmm": recs}, main_launches
 

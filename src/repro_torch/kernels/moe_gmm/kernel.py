@@ -2,12 +2,17 @@
 of ``repro.kernels.moe_gmm.kernel``.
 
 ``out[t*tm:(t+1)*tm] = x[t*tm:(t+1)*tm] @ w[tile_expert[t]]``, x and w in
-float32 or bfloat16 (the same for both), out in float32. On CUDA tensors
-the wrapper checks device, dtype, shape, contiguity and the tiling
-contract, launches on the current stream, adds one to its launch count and
-raises if the launch failed. It never falls back: on CPU tensors, and only
-there, it computes the plain PyTorch version (``ref.py``) and counts
-nothing.
+float32 or bfloat16 (the same for both), out in float32, for every row,
+whatever it holds. On the card one call is three launches on the current
+stream: a scan of x for each tile's live rows (``ref.live_row_ends``), a
+CUDA-core path for tiles of at most ``SKINNY_ROWS`` live rows (decode) and
+a split-TF32 ``wgmma`` path for the others (prefill); the rows past a
+tile's live rows get the zero-row product of its expert. The live rows
+stay on the device: the wrapper never reads anything back and never
+synchronizes. On CUDA tensors it checks device, dtype, shape, contiguity
+and the tiling contract, launches, adds one to its launch count and raises
+if a launch failed. It never falls back: on CPU tensors, and only there,
+it computes the plain PyTorch version (``ref.py``) and counts nothing.
 """
 from __future__ import annotations
 
@@ -23,17 +28,37 @@ from . import ref
 # Launches of the kernel: a plain int, raised by one per launch.
 LAUNCHES: Dict[str, int] = {"moe_gmm": 0}
 
-# The CUDA CTA's row sub-tiles (64, else 32): one must divide tile_m.
-ROW_SUBTILES = (64, 32)
+# The CUDA row sub-tile: it must divide tile_m.
+ROW_SUBTILE = 32
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The kernel's dispatch (``csrc/moe_gmm.cu``): a tile of at most
+# SKINNY_ROWS live rows runs on CUDA cores over the smallest of
+# SKINNY_BUCKETS rows that holds them; a larger one as wgmma over whole
+# 64-row warpgroups.
+SKINNY_ROWS = 16
+SKINNY_BUCKETS = (4, 8, 16)
+WARPGROUP_ROWS = 64
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _P]
+_ARGTYPES = [_P, _P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _P]
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def computed_rows(live_end, tile_m: int) -> int:
+    """Rows the CUDA kernel runs as products for tiles with these live-row
+    ends (the rest get the zero-row product): at most ``SKINNY_ROWS``
+    live rows take their bucket, more take whole 64-row warpgroups."""
+    total = 0
+    for live in (int(v) for v in live_end):
+        if live <= SKINNY_ROWS:
+            total += next(b for b in SKINNY_BUCKETS if live <= b)
+        else:
+            total += min(tile_m, -(-live // WARPGROUP_ROWS) * WARPGROUP_ROWS)
+    return total
 
 
 def check_tiling(m: int, k: int, n: int, tile_m: int, tile_n: int,
@@ -80,15 +105,16 @@ def moe_gmm_cuda(tile_expert: torch.Tensor, x: torch.Tensor,
     if x.dtype not in DTYPES or w.dtype != x.dtype:
         raise TypeError(f"{name}: x and w must both be float32 or both "
                         f"bfloat16, got {x.dtype} and {w.dtype}")
-    if not any(tile_m % bm == 0 for bm in ROW_SUBTILES):
-        raise ValueError(f"{name}: tile_m={tile_m} is not a multiple of a "
-                         f"CUDA row sub-tile {ROW_SUBTILES}")
+    if tile_m % ROW_SUBTILE:
+        raise ValueError(f"{name}: tile_m={tile_m} is not a multiple of the "
+                         f"CUDA row sub-tile {ROW_SUBTILE}")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return out
+    live_end = torch.empty(m // tile_m, dtype=torch.int32, device=x.device)
     LAUNCHES[name] += 1
     raise_on_launch_error(name, _build.function(name, name, _ARGTYPES)(
-        tile_expert.data_ptr(), x.data_ptr(), w.data_ptr(), out.data_ptr(),
-        m, w.shape[0], k, n, tile_m, DTYPES[x.dtype],
-        launch_stream(x.device)))
+        tile_expert.data_ptr(), live_end.data_ptr(), x.data_ptr(),
+        w.data_ptr(), out.data_ptr(), m, w.shape[0], k, n, tile_m,
+        DTYPES[x.dtype], launch_stream(x.device)))
     return out

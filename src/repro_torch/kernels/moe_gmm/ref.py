@@ -27,6 +27,21 @@ def expert_runs(tile_expert: torch.Tensor):
     return [(int(s), int(e - s), int(te[s])) for s, e in zip(starts, ends)]
 
 
+def live_row_ends(tile_expert: torch.Tensor, x: torch.Tensor,
+                  tile_m: int = 128) -> torch.Tensor:
+    """(M/tile_m,) int32: 1 + the last row of each tile that holds an
+    element other than +-0 (NaN counts), 0 for an all-zero tile. The rows
+    at or past it are zero rows, whose product with the tile's expert is
+    the same row for all of them: what the CUDA kernel's scan finds."""
+    n_tiles = x.shape[0] // tile_m
+    if tile_expert.shape[0] != n_tiles:
+        raise ValueError(f"{tile_expert.shape[0]} tile experts for "
+                         f"{n_tiles} row tiles")
+    live = (x != 0).any(dim=1).view(n_tiles, tile_m)
+    rows = torch.arange(1, tile_m + 1, dtype=torch.int32, device=x.device)
+    return (live * rows).amax(dim=1).to(torch.int32)
+
+
 def ref_gmm(tile_expert: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
             tile_m: int = 128) -> torch.Tensor:
     """(M/tile_m,) experts, x (M, K), w (E, K, N) -> (M, N) float32."""

@@ -811,6 +811,131 @@ def test_moe_kernel_matches_plain(card, tile_m, k, n, tile_k, tile_n,
     _assert_near(out, MR.ref_gmm(ted, xd, wd, tile_m=tile_m))
 
 
+def _moe_counts_input(counts, k, n, tile_m, dtype, device, seed=0):
+    """Tokens routed by explicit per-expert counts; w from the same seed."""
+    rng = np.random.default_rng(seed)
+    eot = np.repeat(np.arange(len(counts)), counts)
+    x, te, inv = route_and_pad(
+        rng.standard_normal((len(eot), k)).astype(np.float32), eot,
+        len(counts), tile_m)
+    w = rng.standard_normal((len(counts), k, n)).astype(np.float32)
+    return x, te, inv, w
+
+
+def _moe_run(x, te, w, tile_m, dtype, device):
+    xd = torch.as_tensor(x, device=device).to(dtype)
+    wd = torch.as_tensor(w, device=device).to(dtype)
+    ted = torch.as_tensor(te, device=device)
+    out = MK.moe_gmm_cuda(ted, xd, wd, tile_m=tile_m, tile_n=8, tile_k=8)
+    torch.cuda.synchronize()
+    return out, MR.ref_gmm(ted, xd, wd, tile_m=tile_m), \
+        MR.live_row_ends(ted, xd, tile_m)
+
+
+@pytest.mark.parametrize("tile_m", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_kernel_nonfinite_w_gives_plain_masks(card, tile_m, dtype):
+    """NaN, +Inf and -Inf in the weights of experts with real rows (one
+    with 3 tokens, CUDA-core path; one with tile_m + 40, wgmma path) and of
+    an empty expert: the plain version's NaN and +-Inf masks, the pad rows
+    included (0 * Inf is NaN there)."""
+    x, te, _, w = _moe_counts_input([tile_m + 40, 3, 0, 2 * tile_m - 5],
+                                    72, 200, tile_m, dtype, card)
+    w[0, 40, 13], w[0, 41, 14], w[0, 1, 15] = np.inf, -np.inf, np.nan
+    w[1, 3, 11], w[1, 60, 12] = np.inf, -np.inf
+    w[2, 5, 7], w[2, 70, 9] = np.nan, -np.inf
+    w[3, 33, 100] = -np.inf
+    out, ref, live = _moe_run(x, te, w, tile_m, dtype, card)
+    assert 0 in live.tolist() and max(live.tolist()) > 16
+    assert bool(ref.isnan().any()) and bool(ref.isposinf().any())
+    _near(out, ref)
+
+
+@pytest.mark.parametrize("tile_m", [32, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_kernel_computes_pad_rows_that_hold_values(card, tile_m, dtype):
+    """A pad row with a value (CUDA-core tile) and a pad row with a NaN
+    (an empty expert's tile, now 21 live rows: wgmma) are products, not
+    the zero-row product."""
+    x, te, inv, w = _moe_counts_input([3, 0, 50], 64, 96, tile_m, dtype,
+                                      card, seed=1)
+    t1 = list(te).index(1) * tile_m
+    x[6, 3] = 1.5                       # expert 0's tile, a pad row
+    x[t1 + 20, 8] = np.nan              # the empty expert's tile
+    assert inv[6] < 0 and inv[t1 + 20] < 0
+    out, ref, live = _moe_run(x, te, w, tile_m, dtype, card)
+    assert live.tolist()[0] == 7 and live.tolist()[list(te).index(1)] == 21
+    assert bool(ref[t1 + 20].isnan().all()) and bool(ref[6].abs().max() > 0)
+    _near(out, ref)
+
+
+@pytest.mark.parametrize("tile_m,tokens", [(128, 4), (128, 64), (256, 128),
+                                           (256, 64), (64, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_kernel_hot_expert_and_warpgroup_boundary(card, tile_m, tokens,
+                                                      dtype):
+    """Every token on expert 0 (the decode loop's hot regime), at 4 tokens
+    and at live rows that end exactly on a 64-row warpgroup boundary."""
+    x, te, _, w = _moe_counts_input([tokens, 0, 0], 64, 96, tile_m, dtype,
+                                    card, seed=2)
+    out, ref, live = _moe_run(x, te, w, tile_m, dtype, card)
+    assert live.tolist()[0] == tokens
+    _assert_near(out, ref)
+
+
+@pytest.mark.parametrize("tile_m", [128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_kernel_prefill_sized_both_paths(card, tile_m, dtype):
+    """A prefill-sized input (about 1,700 tokens) whose tiles end at live
+    counts on both sides of the dispatch threshold (0, 1, 4, 16 | 17, 64,
+    72, 104, full), with K = 72 and N = 200 edges."""
+    counts = [1000, 129, 16, 17, 0, 200, 64, 260]
+    x, te, _, w = _moe_counts_input(counts, 72, 200, tile_m, dtype, card,
+                                    seed=3)
+    out, ref, live = _moe_run(x, te, w, tile_m, dtype, card)
+    live = live.tolist()
+    assert min(live) <= MK.SKINNY_ROWS < max(live)
+    assert MK.SKINNY_ROWS in live and MK.SKINNY_ROWS + 1 in live
+    _assert_near(out, ref)
+
+
+@pytest.mark.parametrize("tile_m", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_kernel_rows_not_16_byte_multiples(card, tile_m, dtype):
+    """K = 70 and N = 33: x and w rows are not 16-byte multiples, so both
+    paths copy element by element (no cp.async groups, no tensor maps)."""
+    x, te, _, w = _moe_counts_input([150, 16, 0, 64], 70, 33, tile_m,
+                                    dtype, card, seed=4)
+    xd = torch.as_tensor(x, device=card).to(dtype)
+    wd = torch.as_tensor(w, device=card).to(dtype)
+    ted = torch.as_tensor(te, device=card)
+    out = MK.moe_gmm_cuda(ted, xd, wd, tile_m=tile_m, tile_n=11, tile_k=10)
+    torch.cuda.synchronize()
+    live = MR.live_row_ends(ted, xd, tile_m).tolist()
+    assert min(live) <= MK.SKINNY_ROWS < max(live)
+    _assert_near(out, MR.ref_gmm(ted, xd, wd, tile_m=tile_m))
+
+
+def test_moe_wrapper_never_synchronizes(card):
+    """The call returns while a long sleep queued ahead of it on the stream
+    still runs: the wrapper reads nothing back from the card."""
+    x, te, _, w = _moe_counts_input([5, 0, 40], 64, 96, 64, torch.float32,
+                                    card)
+    xd, wd = torch.as_tensor(x, device=card), torch.as_tensor(w, device=card)
+    ted = torch.as_tensor(te, device=card)
+    MK.moe_gmm_cuda(ted, xd, wd, tile_m=64, tile_n=8, tile_k=8)  # built
+    torch.cuda.synchronize()
+    before = MK.LAUNCHES["moe_gmm"]
+    torch.cuda._sleep(2_000_000_000)
+    slept = torch.cuda.Event()
+    slept.record()
+    out = MK.moe_gmm_cuda(ted, xd, wd, tile_m=64, tile_n=8, tile_k=8)
+    assert not slept.query()
+    assert MK.LAUNCHES["moe_gmm"] == before + 1
+    torch.cuda.synchronize()
+    _assert_near(out, MR.ref_gmm(ted, xd, wd, tile_m=64))
+
+
 @pytest.mark.parametrize("d", [32, 64, 128, 256])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

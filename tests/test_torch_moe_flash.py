@@ -25,14 +25,17 @@ from repro.selector import ScheduleCache as JScheduleCache
 from repro.selector.fingerprint import routing_fingerprint as jrouting_fp
 from repro.sparse import moe_tile_schedule as jmoe_tile_schedule
 from repro.sparse import plan as jplan
+from repro.sparse.resilience import GuardedExecutor
 from repro_torch.core import (H100_SXM, Schedule, partition_imbalance,
                               select_moe_block_size)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_cuda,
                                                  ref_attention)
 from repro_torch.kernels.flash_attention.ref import split_tf32, to_tf32
-from repro_torch.kernels.moe_gmm import (moe_gmm, moe_gmm_cuda, ref_gmm,
+from repro_torch.kernels.moe_gmm import (live_row_ends, moe_gmm,
+                                         moe_gmm_cuda, ref_gmm,
                                          route_and_pad)
+from repro_torch.kernels.moe_gmm.kernel import computed_rows
 from repro_torch.selector import ScheduleCache, routing_fingerprint
 from repro_torch.serving import decode_moe_ticks
 from repro_torch.sparse import (PreparedStore, get_op, launch_count,
@@ -250,6 +253,76 @@ def test_moe_plan_keeps_device_weights_and_store_key():
     assert key[0] == "moe_gmm" and key[-1] == CPU
     tel = store.telemetry()
     assert (tel["hits"], tel["misses"]) == (1, 1)
+
+
+@pytest.mark.parametrize("t,k,e,tm,drop_last", [
+    (200, 64, 3, 32, False), (133, 8, 4, 64, True), (5, 16, 8, 128, False),
+    (300, 32, 2, 256, True), (0, 8, 3, 32, False)])
+def test_live_row_ends_match_route_and_pad(t, k, e, tm, drop_last):
+    """On routed tokens, each tile's live rows end after its last token
+    (``route_and_pad``'s inverse index), 0 for a tile with none; a pad row
+    that holds a value or a NaN is live, a -0.0 one is not."""
+    tokens, eot, _ = _routed(t, k, 4, e, tm, seed=t + tm, drop_last=drop_last)
+    x, te, inv = route_and_pad(tokens, eot, e, tile_m=tm)
+    real = (inv >= 0).reshape(-1, tm)
+    want = np.where(real.any(axis=1),
+                    tm - np.argmax(real[:, ::-1], axis=1), 0)
+    got = live_row_ends(torch.as_tensor(te), torch.as_tensor(x), tm)
+    assert got.dtype == torch.int32 and got.tolist() == want.tolist()
+    last = len(te) - 1                  # the last expert's last tile
+    x[last * tm + tm - 3, 0] = -0.0
+    assert live_row_ends(torch.as_tensor(te), torch.as_tensor(x),
+                         tm).tolist() == want.tolist()
+    for value in (1e-30, np.nan):
+        xv = x.copy()
+        xv[last * tm + tm - 3, k - 1] = value
+        got = live_row_ends(torch.as_tensor(te), torch.as_tensor(xv), tm)
+        assert got.tolist() == want.tolist()[:-1] + [tm - 2]
+
+
+def _zero_row_product(w_e):
+    """sum_k 0 * w_e[k, n]: NaN where column n holds a NaN or an Inf."""
+    return np.where(np.isfinite(w_e).all(axis=0), 0.0, np.nan)
+
+
+@pytest.mark.parametrize("backend", ["jnp", "interpret"])
+@pytest.mark.parametrize("tm", [32, 64])
+def test_pad_rows_get_the_zero_row_product(backend, tm):
+    """The rule the CUDA kernel rests on: with a NaN and +-Inf in w, every
+    pad row of an expert's tiles is that expert's closed-form zero-row
+    product (NaN in the non-finite columns, zero elsewhere), in the JAX
+    facade and in the port's plain path alike; an empty expert's too. The
+    facade's NaN guard is off, so the backend asked for is the one that
+    runs."""
+    t, k, n, e = 90, 32, 48, 4
+    tokens, eot, w = _routed(t, k, n, e, tm, seed=11, drop_last=True)
+    w[0, 3, 5] = np.nan
+    w[1, 7, 9], w[1, 8, 10] = np.inf, -np.inf
+    w[3, 0, 40] = np.inf                   # the empty expert
+    x, te, inv = route_and_pad(tokens, eot, e, tile_m=tm)
+    want = np.asarray(jplan(
+        "moe_gmm", (te,), tile_m=tm, tile_n=16, tile_k=16, backend=backend,
+        executor=GuardedExecutor(nan_guard=False)).execute(x, w))
+    got = plan("moe_gmm", (te,), tile_m=tm, tile_n=16, tile_k=16,
+               device=CPU).execute(x, w).numpy()
+    tile_of_row = np.repeat(te, tm)
+    pad = inv < 0
+    assert pad[tile_of_row == 3].all()
+    for out in (want, got):
+        for r in np.flatnonzero(pad):
+            z = _zero_row_product(w[tile_of_row[r]])
+            np.testing.assert_array_equal(out[r], z)
+        assert np.isnan(out[pad & (tile_of_row == 1)][:, [9, 10]]).all()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+
+
+@pytest.mark.parametrize("live,tile_m,rows", [
+    ([0, 4, 5, 16], 128, 4 + 4 + 8 + 16), ([17, 64, 65, 128], 128,
+                                            64 + 64 + 128 + 128),
+    ([200, 256, 0], 256, 256 + 256 + 4), ([20, 32], 32, 32 + 32)])
+def test_computed_rows_follow_the_kernel_dispatch(live, tile_m, rows):
+    assert computed_rows(live, tile_m) == rows
 
 
 # ---------------------------------------------------------- flash_attention
