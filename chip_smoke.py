@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: drives the plan/execute paths of
-spmv/spmm, spgemm and spadd on one NVIDIA GPU at full matrix size, and the
-MoE decode loop, an MoE prefill and prefill attention at mixtral-8x22b
-width, and holds every kernel against its plain PyTorch version (and the
-sparse ones against a float64 CSR oracle).
+spmv/spmm, spgemm and spadd on one NVIDIA GPU at full matrix size, the
+tree-driven ``SelectorService`` on SpMV and SpMM requests, and the MoE
+decode loop, an MoE prefill and prefill attention at mixtral-8x22b width,
+all under the guard (``GuardedExecutor``), and holds every kernel against
+its plain PyTorch version (and the sparse ones against a float64 CSR
+oracle).
 
-    python3 chip_smoke.py            # needs one CUDA card; ~4-6 min
+    python3 chip_smoke.py            # needs one CUDA card; ~5-7 min
 
 Phases (any failure exits nonzero; nothing is caught and passed over):
   1. build the five CUDA sources of ``src/repro_torch/csrc`` (one nvcc per
@@ -21,7 +23,29 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      executes twice and prints a ``{"plan": "spmv"|"spmm", "input",
      "layout", "ms_first", "ms"}`` line; each output within
      ``1e-4 * max|y_ref|`` of the float64 oracle (fp32 sums of up to 8,192
-     products, taken in another order);
+     products, taken in another order); then the guard's cost: the
+     spatial ELL spmv plan built under ``GuardedExecutor(nan_guard=False)``
+     and under ``nan_guard=True``, warm ``last_measured_s`` of each in
+     turns (off, on, on, off), one ``{"guard_cost": ...}`` line (spgemm's
+     spatial pairs plan gets the same in phase 3);
+  2b. selector phase, ``{"selector": ...}`` lines: ``ScheduleTuner("spmv",
+     H100_SXM)`` and its ``n_rhs=8`` twin fit (and timed) on the serve
+     CLI's default corpus; one ``SelectorService`` each
+     (``confidence_threshold=0``: the tree serves, as the verify sweep
+     densifies every candidate on the host; a ``ScheduleCache``; a
+     ``PreparedStore`` that holds the picked operand) serves two ticks of
+     ``process_pending(backend="auto")`` over ``gen_spatial(SERVE_N)`` and
+     the four zipf members (dense shortcut: ``torch.matmul``), each with
+     its x (k = 1) or X (k = 8); every output within ``1e-4 * max|ref|`` of
+     the float64 oracle, tick 2 all cache hits and no store miss (no host
+     prep), and the picked layouts' SpMV/SpMM kernels launched (counts
+     zeroed before the phase); each decision's source, schedule,
+     confidence, modeled and measured ms and residual, the service
+     telemetry and peak memory are printed, and each picked kernel gets a
+     row (as in phase 7) on the service's own prepared operand, taken from
+     its store with no host prep; then the tree's picks for
+     ``gen_spatial(131072)`` and ``gen_spatial(524288)`` with the block
+     bytes they imply (from block counts, ``"served": false``);
   3. spgemm main path: ``plan("spgemm", (A, A))`` with ``layout="ell"``
      (padded pairs) and ``"sell"`` (flat cells) on ``gen_spatial(65536)``
      (bs=32, C 9.55 GB) and ``gen_zipf(8192)`` (bs=128), then
@@ -78,8 +102,19 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      NaN in exactly the outputs where its plain (all-slot, all-cell)
      version does.
 Each main path zeroes its kernels' launch counts just before it and reads
-them just after; every kernel must have launched there. The last lines are
-the ``kernels`` JSON line, the card line and ``{"ok": true, "device": ...}``.
+them just after; every kernel must have launched there. Every plan runs
+under the process's default ``GuardedExecutor`` (NaN guard on; on the
+card its chain is the CUDA kernel alone, so a fault raises and is never
+served by the plain version or the host); after each phase a
+``{"guard": {"phase", ...counters, "quarantined"}}`` line prints its
+ledger, and any counter above 0 or quarantined combo fails the run. Each
+plan line gives its warm time with the guard's check (``ms`` /
+``execute_ms``) and, from one more execute with the check off, without it
+(``ms_unchecked`` / ``execute_ms_unchecked``), which is what a tree from
+before the guard measured. The non-finite checks call the kernel
+wrappers directly, outside the guard.
+The last lines are the ``kernels`` JSON line, the card line and
+``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
@@ -129,6 +164,14 @@ MOE_DIMS = {"d_model": 6144, "d_ff": 16384, "experts": 8, "batch": 4,
 FLASH_DIMS = {"heads": 48, "kv_heads": 8, "d": 128,
               "inputs": ((1, 4096), (8, 1024))}
 BF16_TOL = 3e-2                    # the JAX bf16 attention test's
+# the serve CLI's default training corpus (repro_torch.selector.serve)
+SELECTOR_CORPUS = {"n_matrices": 18, "n_min": 256, "n_max": 768, "seed": 0}
+# the selector phase serves gen_spatial(SERVE_N): at 131072 the tree's
+# bs=256 ELL pick is 27.9 GB of blocks (34.4 GB shape-bucketed, held on the
+# host and the card once per prepared operand, and copied again into the
+# bucket's stack), so 65536 (11.1 GB of blocks) is served and 131072 and
+# 524288 are only picked
+SERVE_N = 65536
 
 
 def log(msg: str) -> None:
@@ -191,6 +234,57 @@ def memory_line(phase: str, device: str) -> None:
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+
+
+def guard_line(phase: str) -> None:
+    """The process guard's ledger after a phase; fails the run on any fall
+    or quarantined combo."""
+    from repro_torch.sparse import default_executor, default_quarantine
+    tel = default_executor().telemetry()
+    n_q = len(default_quarantine())
+    emit({"guard": {"phase": phase, **tel, "quarantined": n_q}})
+    falls = {k: v for k, v in tel.items() if v > 0}
+    check(sum(tel.values()) == 0 and n_q == 0,
+          f"guard after {phase}: falls {falls}, {n_q} combos quarantined")
+
+
+def guard_cost(label: str, make_plan, runtime, out_bytes: int) -> None:
+    """Warm execute times of one plan built under ``GuardedExecutor
+    (nan_guard=False)`` and under ``nan_guard=True``, in turns (off, on,
+    on, off), each the second of two executes, as the plan's own
+    ``last_measured_s`` reads it; the check reads each output once, so
+    its least time is the output's bytes at the HBM rate."""
+    from repro_torch.sparse import GuardedExecutor
+    execs = {flag: GuardedExecutor(nan_guard=flag) for flag in (False, True)}
+    plans = {flag: make_plan(ex) for flag, ex in execs.items()}
+    times = {False: [], True: []}
+    for flag in (False, True, True, False):
+        p = plans[flag]
+        for _ in range(2):
+            out = p.execute(*runtime)
+            del out
+        times[flag].append(p.last_measured_s * 1e3)
+    for ex in execs.values():
+        check(sum(ex.telemetry().values()) == 0 and not len(ex.quarantine),
+              f"guard cost {label}: no fall")
+    emit({"guard_cost": {"plan": label, "off_ms": times[False],
+                         "on_ms": times[True], "check_bytes": out_bytes,
+                         "check_bound_ms": out_bytes / HBM_BYTES_PER_S
+                         * 1e3}})
+
+
+def unchecked_ms(p, *runtime) -> float:
+    """ms of one more execute of ``p`` with the process guard's NaN check
+    off (the plan's own executor is the process default), so a plan line
+    can give its time without the check beside its time with it."""
+    from repro_torch.sparse import default_executor
+    ex = default_executor()
+    flag, ex.nan_guard = ex.nan_guard, False
+    try:
+        p.execute(*runtime)
+    finally:
+        ex.nan_guard = flag
+    return p.last_measured_s * 1e3
 
 
 def sched(layout: str, bs: int):
@@ -321,9 +415,58 @@ def matvec_plan_line(p, x, inp_name: str, layout: str) -> np.ndarray:
     p.execute(x)
     first = p.last_measured_s
     y = p.execute(x).cpu().numpy()
+    ms = p.last_measured_s * 1e3
     emit({"plan": p.op, "input": inp_name, "layout": layout,
-          "ms_first": first * 1e3, "ms": p.last_measured_s * 1e3})
+          "ms_first": first * 1e3, "ms": ms,
+          "ms_unchecked": unchecked_ms(p, x)})
     return y
+
+
+def matvec_row(st, multi: bool, inp_name: str, xh: np.ndarray,
+               ref: np.ndarray, csr, timer, device: str) -> dict:
+    """One spmv (or, with ``multi``, spmm) kernel x input row on the
+    prepared operand ``st``: the kernel against its plain version and the
+    float64 oracle ``ref`` over the whole output, the non-finite
+    ``x_blocks[0]`` check, the kernel's and the plain version's times, the
+    library call ``csr @ x`` and the bound."""
+    import torch
+    name, cuda_fn, plain_fn, idx, count = kernel_args(st, multi)
+    bs = st.block_size
+    n_bc = -(-st.meta.shape[1] // bs)
+    xt = torch.as_tensor(xh, device=device)
+    xb = torch.zeros((n_bc * bs,) + xh.shape[1:], dtype=torch.float32,
+                     device=device)
+    xb[: xh.shape[0]] = xt
+    xb = xb.reshape((n_bc, bs) + xh.shape[1:])
+    blocks = st.arrays["blocks"]
+    y_k = cuda_fn(*idx, blocks, xb, **count)
+    y_p = plain_fn(*idx, blocks, xb)
+    sync(device)
+    rows = ref.shape[0]
+    yk = y_k.reshape(-1, *xh.shape[1:])[:rows].cpu().numpy()
+    yp = y_p.reshape(-1, *xh.shape[1:])[:rows].cpu().numpy()
+    del y_k, y_p
+    e_kp, e_ko, e_po = rel_err(yk, yp), rel_err(yk, ref), rel_err(yp, ref)
+    check(np.isfinite(yk).all() and e_kp <= TOL and e_ko <= TOL
+          and e_po <= TOL,
+          f"{name} on {inp_name}: kernel vs plain {e_kp:.3e}, kernel vs "
+          f"oracle {e_ko:.3e}, plain vs oracle {e_po:.3e}")
+    check_nonfinite_pattern(name, cuda_fn, plain_fn, idx, count, blocks, xb,
+                            inp_name)
+    ms = timer(lambda: cuda_fn(*idx, blocks, xb, **count))
+    plain_ms = timer(lambda: plain_fn(*idx, blocks, xb), iters=5, warmup=1)
+    rhs = xt if multi else xt.unsqueeze(1)
+    lib_ms, lib_err, _ = library_time(lambda: csr @ rhs, timer, device)
+    nbytes, flops = matvec_work(st, multi, xh.shape[1] if multi else 1)
+    b_ms, b_by = bound(nbytes, flops)
+    rec = {"kernel": name, "input": inp_name,
+           "max_abs_err": float(np.abs(yk - yp).max()),
+           "rel_err_vs_plain": e_kp, "rel_err_vs_oracle": e_ko,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library_error": lib_err, "bound_ms": b_ms, "bound_by": b_by,
+           "bytes": nbytes, "flops": flops, "share_of_bound": b_ms / ms}
+    emit(rec)
+    return rec
 
 
 def run_matvec(device: str, inputs, members, seed: int, timer) -> dict:
@@ -412,59 +555,182 @@ def run_matvec(device: str, inputs, members, seed: int, timer) -> dict:
         f"launches {main_launches}")
     for name, n in main_launches.items():
         check(n > 0, f"kernel {name} launched on the main path")
+    head = inputs[0]
+    guard_cost(f"spmv {head['name']} ell",
+               lambda ex: plan("spmv", (head["A"],),
+                               schedule=sched("ell", head["bs"]),
+                               store=store, device=device, executor=ex),
+               (head["x"],), head["A"].shape[0] * 4)
 
     # ------------------------------------------------ kernels one by one
     results = {}
     for inp in inputs:
-        A = inp["A"]
-        csr = torch_csr(A, device)
+        csr = torch_csr(inp["A"], device)
         for layout in ("ell", "sell"):
             st = prepared[(inp["name"], layout)]
-            bs = st.block_size
-            n_bc = -(-st.meta.shape[1] // bs)
             for multi in (False, True):
-                name, cuda_fn, plain_fn, idx, count = kernel_args(st, multi)
-                xh = inp["X"] if multi else inp["x"]
-                ref = inp["Y_ref"] if multi else inp["y_ref"]
-                xt = torch.as_tensor(xh, device=device)
-                xb = torch.zeros((n_bc * bs,) + xh.shape[1:],
-                                 dtype=torch.float32, device=device)
-                xb[: xh.shape[0]] = xt
-                xb = xb.reshape((n_bc, bs) + xh.shape[1:])
-                blocks = st.arrays["blocks"]
-                y_k = cuda_fn(*idx, blocks, xb, **count)
-                y_p = plain_fn(*idx, blocks, xb)
-                sync(device)
-                rows = A.shape[0]
-                yk = y_k.reshape(-1, *xh.shape[1:])[:rows].cpu().numpy()
-                yp = y_p.reshape(-1, *xh.shape[1:])[:rows].cpu().numpy()
-                e_kp, e_ko, e_po = (rel_err(yk, yp), rel_err(yk, ref),
-                                    rel_err(yp, ref))
-                check(np.isfinite(yk).all() and e_kp <= TOL and e_ko <= TOL
-                      and e_po <= TOL,
-                      f"{name} on {inp['name']}: kernel vs plain {e_kp:.3e},"
-                      f" kernel vs oracle {e_ko:.3e}, plain vs oracle "
-                      f"{e_po:.3e}")
-                check_nonfinite_pattern(name, cuda_fn, plain_fn, idx, count,
-                                        blocks, xb, inp["name"])
-                ms = timer(lambda: cuda_fn(*idx, blocks, xb, **count))
-                plain_ms = timer(lambda: plain_fn(*idx, blocks, xb),
-                                 iters=5, warmup=1)
-                rhs = xt if multi else xt.unsqueeze(1)
-                lib_ms, lib_err, _ = library_time(lambda: csr @ rhs, timer,
-                                                  device)
-                nbytes, flops = matvec_work(st, multi, K_RHS)
-                b_ms, b_by = bound(nbytes, flops)
-                rec = {"kernel": name, "input": inp["name"],
-                       "max_abs_err": float(np.abs(yk - yp).max()),
-                       "rel_err_vs_plain": e_kp, "rel_err_vs_oracle": e_ko,
-                       "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                       "library_error": lib_err,
-                       "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-                       "flops": flops, "share_of_bound": b_ms / ms}
-                emit(rec)
-                results.setdefault(name, []).append(rec)
+                rec = matvec_row(st, multi, inp["name"],
+                                 inp["X"] if multi else inp["x"],
+                                 inp["Y_ref"] if multi else inp["y_ref"],
+                                 csr, timer, device)
+                results.setdefault(rec["kernel"], []).append(rec)
     return results, main_launches
+
+
+
+# ------------------------------------------------------------- selector
+
+def describe(s) -> str:
+    if s.backend == "dense":
+        return f"dense rhs={s.n_rhs}"
+    lay = (f"sell C={s.slice_height}" if s.layout == "sell"
+           else f"ell q={s.ell_quantile}")
+    return f"{s.backend} bs={s.block_size} {lay} rhs={s.n_rhs}"
+
+
+def block_bytes(A, bs: int) -> dict:
+    """What preparing A at block size ``bs`` would hold, from its block
+    counts (nothing is built): the nonempty blocks, their bytes, the bytes
+    of the shape-bucketed block array a plan stores (``bucket_edge`` of
+    the blocks plus the zero block) and of an ELL pass over every slot
+    (block-rows x widest row)."""
+    from repro_torch.sparse import bucket_edge
+    n_br, n_bc = -(-A.shape[0] // bs), -(-A.shape[1] // bs)
+    rows = np.repeat(np.arange(A.shape[0], dtype=np.int64) // bs,
+                     A.row_lengths())
+    keys = np.unique(rows * n_bc + A.col_idxs.astype(np.int64) // bs)
+    per_row = np.bincount(keys // n_bc, minlength=n_br)
+    tile = bs * bs * 4
+    return {"blocks": int(keys.size), "block_bytes": int(keys.size) * tile,
+            "bucketed_block_bytes": bucket_edge(int(keys.size) + 1) * tile,
+            "ell_slot_bytes": n_br * int(per_row.max()) * tile}
+
+
+def run_selector(device: str, serve_n: int, big, members, seed: int,
+                 timer) -> dict:
+    """The selector phase: two fitted ``ScheduleTuner``s (SpMV and SpMM at
+    k = 8, the serve CLI's corpus, the ``H100_SXM`` record), one
+    ``SelectorService`` each (the tree serves: ``confidence_threshold=0``;
+    a ``ScheduleCache``; a store that holds the picked operand), two ticks
+    of ``process_pending(backend="auto")`` over ``gen_spatial(serve_n)``
+    and the zipf members, every output against the float64 oracle; tick 2
+    from the cache and the store; the picked layouts' kernels launched
+    (counted over the ticks only). Each picked kernel's row on the served
+    operand, as the store holds it, is returned as {kernel: [record]}.
+    Then the tree's picks on the larger inputs ``big`` and the bytes they
+    imply, which are not served."""
+    import torch
+    from repro_torch.core import (H100_SXM, ScheduleTuner, corpus,
+                                  gen_spatial, spmm_oracle, spmv_oracle)
+    from repro_torch.kernels.bsr_spmv import kernel as K
+    from repro_torch.selector import (ScheduleCache, SchedulePredictor,
+                                      SelectorService, fingerprint)
+    from repro_torch.sparse import PreparedStore, content_key, plan
+
+    train = corpus(**SELECTOR_CORPUS)
+    tuners, fit = {}, {}
+    for k in (1, K_RHS):
+        t0 = time.monotonic()
+        tuners[k] = ScheduleTuner("spmv", H100_SXM, n_rhs=k).fit(
+            train, max_mats=SELECTOR_CORPUS["n_matrices"])
+        fit[k] = {"fit_s": time.monotonic() - t0,
+                  "simulations": tuners[k].fit_simulations_}
+    emit({"selector": {"tuners": {f"rhs{k}": v for k, v in fit.items()},
+                       "corpus": SELECTOR_CORPUS, "platform": "h100_sxm"}})
+
+    spatial = gen_spatial(serve_n, seed=seed)
+    reqs = [(f"spatial_{serve_n}", spatial)] + [
+        (f"zipf_{m.shape[0]}_seed{i}", m) for i, m in enumerate(members)]
+    rng = np.random.default_rng(seed + 5)
+    kernels, launches, rows = [], {}, {}
+    for k, tuner in tuners.items():
+        K.reset_launch_counts()
+        xs = {name: rng.standard_normal(
+            A.shape[1] if k == 1 else (A.shape[1], k)).astype(np.float32)
+            for name, A in reqs}
+        oracle = spmv_oracle if k == 1 else spmm_oracle
+        refs = {name: oracle(A, xs[name]) for name, A in reqs}
+        store = PreparedStore(byte_budget=48 << 30)
+        svc = SelectorService(tuner, cache=ScheduleCache(),
+                              confidence_threshold=0.0, prepared_store=store,
+                              device=device, batch_max=8)
+        for tick in (1, 2):
+            hits, misses = svc.cache.hits, store.misses
+            for name, A in reqs:
+                svc.submit(f"t{tick}:{name}", A, xs[name])
+            t0 = time.monotonic()
+            decs = svc.process_pending(backend="auto")
+            tick_s = time.monotonic() - t0
+            check(len(decs) == len(reqs), f"selector rhs{k} tick {tick}: "
+                  "every request decided")
+            for d in decs:
+                name = d.name.split(":", 1)[1]
+                e = rel_err(d.y, refs[name])
+                emit({"selector": {
+                    "rhs": k, "tick": tick, "request": name,
+                    "source": d.source, "schedule": describe(d.schedule),
+                    "confidence": d.confidence, "bucket": d.bucket,
+                    "modeled_ms": (d.modeled_time_s * 1e3
+                                   if d.modeled_time_s else None),
+                    "measured_ms": d.measured_ms, "residual": d.residual,
+                    "rel_err": e}})
+                check(d.y is not None and d.y.shape == refs[name].shape
+                      and np.isfinite(d.y).all() and e <= TOL,
+                      f"selector rhs{k} tick {tick} {name}: rel_err "
+                      f"{e:.3e}")
+            emit({"selector": {"rhs": k, "tick": tick, "tick_s": tick_s,
+                               "cache_hits": svc.cache.hits - hits,
+                               "store_misses": store.misses - misses}})
+            if tick == 2:
+                check(svc.cache.hits - hits >= len(reqs)
+                      and all(d.source == "cache" for d in decs),
+                      f"selector rhs{k}: tick 2 served from the cache")
+                check(store.misses == misses,
+                      f"selector rhs{k}: tick 2 served from the store "
+                      "(no host prep)")
+        pick = decs[0].schedule
+        check(pick.backend == "bsr", f"selector rhs{k}: the spatial input "
+              f"takes a BSR schedule, got {describe(pick)}")
+        kernels.append(f"bsr_{'spmv' if k == 1 else 'spmm'}_{pick.layout}")
+        for name, n in K.LAUNCHES.items():
+            launches[name] = launches.get(name, 0) + n
+        emit({"selector": {"rhs": k, "telemetry": svc.telemetry(),
+                           "max_memory_allocated":
+                           torch.cuda.max_memory_allocated()
+                           if device == "cuda" else None}})
+        # the picked kernel's row on the operand the service served, from
+        # its store (a miss here would be a second host prep)
+        name, A = reqs[0]
+        misses = store.misses
+        p = plan("spmv" if k == 1 else "spmm", (A,), schedule=pick,
+                 store=store, device=device, operand_key=content_key(A))
+        check(store.misses == misses, f"selector rhs{k}: the kernel row "
+              "runs on the served operand")
+        rec = matvec_row(p.operands[0], k > 1,
+                         f"selector {name} bs{pick.block_size}", xs[name],
+                         refs[name], torch_csr(A, device), timer, device)
+        rows.setdefault(rec["kernel"], []).append(rec)
+        del svc, store, p
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    emit({"selector": {"kernels": kernels, "launches": launches}})
+    for name in kernels:
+        check(launches[name] > 0, f"selector: {name} launched by the "
+              "served picks")
+
+    for n, A in big:
+        A = A if A is not None else gen_spatial(n, seed=seed)
+        fp = fingerprint(A)
+        for k, tuner in tuners.items():
+            pred = SchedulePredictor(tuner).predict(fp)
+            emit({"selector": {
+                "input": f"spatial_{n}", "rhs": k, "served": False,
+                "schedule": describe(pred.schedule),
+                "confidence": pred.confidence,
+                "modeled_ms": pred.tree_time_s * 1e3,
+                **(block_bytes(A, pred.schedule.block_size)
+                   if pred.schedule.backend == "bsr" else {})}})
+    return rows
 
 
 # ------------------------------------------------------ spgemm / spadd
@@ -592,10 +858,12 @@ def run_plan(op: str, pair, schedule, store, device: str, label: str):
     prep_s = time.monotonic() - t0
     p.execute()
     first = p.last_measured_s
+    unchecked = unchecked_ms(p)
     C = p.execute()
     emit({"plan": op, "input": label, "prep_s": prep_s,
           "execute_ms_first": first * 1e3,
-          "execute_ms": p.last_measured_s * 1e3})
+          "execute_ms": p.last_measured_s * 1e3,
+          "execute_ms_unchecked": unchecked})
     return p, C
 
 
@@ -606,8 +874,8 @@ def run_spgemm(device: str, gemm_inputs, members, member_keys, seed: int,
     import torch
     from repro_torch.core import spmm_oracle
     from repro_torch.kernels.bsr_spgemm import kernel as GK
-    from repro_torch.sparse import (PreparedStore, launch_count, plan_bucket,
-                                    reset_counters)
+    from repro_torch.sparse import (PreparedStore, launch_count, plan,
+                                    plan_bucket, reset_counters)
 
     rng = np.random.default_rng(seed + 1)
     t0 = time.monotonic()
@@ -651,17 +919,27 @@ def run_spgemm(device: str, gemm_inputs, members, member_keys, seed: int,
             f"({bucket.last_measured_s * 1e3:.3f} ms)")
         check(after[0] - before[0] == 1 and after[1] - before[1] == 1,
               f"a spgemm bucket ({layout}) is exactly one launch")
-        emit({"plan": "spgemm_bucket", "input": f"zipf x{len(pairs)} "
-              f"{layout}", "execute_ms": bucket.last_measured_s * 1e3})
+        ms = bucket.last_measured_s * 1e3
         for i, (C, st) in enumerate(zip(Cs, bucket.operands[0]["members"])):
             check_product(C, st, mX[i], m_refs[i],
                           f"spgemm bucket {layout} member {i}", device)
-        del Cs, bucket
+        del Cs
+        emit({"plan": "spgemm_bucket", "input": f"zipf x{len(pairs)} "
+              f"{layout}", "execute_ms": ms,
+              "execute_ms_unchecked": unchecked_ms(bucket)})
+        del bucket
     main_launches = dict(GK.LAUNCHES)
     log(f"spgemm main path {time.monotonic() - t_main:.1f}s, kernel "
         f"launches {main_launches}")
     for name, n in main_launches.items():
         check(n > 0, f"kernel {name} launched on the main path")
+    head = gemm_inputs[0]
+    prep = preps[(head["name"], "ell")]
+    guard_cost(f"spgemm {head['name']} pairs",
+               lambda ex: plan("spgemm", (head["A"], head["A"]),
+                               schedule=sched("ell", head["bs"]),
+                               store=store, device=device, executor=ex),
+               (), prep["n_c"] * prep["bs"] ** 2 * 4)
 
     results = {}
     for inp in gemm_inputs:
@@ -732,12 +1010,14 @@ def run_spadd(device: str, add_inputs, add_pairs, seed: int,
         f"({bucket.last_measured_s * 1e3:.3f} ms)")
     check(after[0] - before[0] == 1 and after[1] - before[1] == 1,
           "a spadd bucket is exactly one launch")
-    emit({"plan": "spadd_bucket", "input": f"zipf x{len(add_pairs)}",
-          "execute_ms": bucket.last_measured_s * 1e3})
+    ms = bucket.last_measured_s * 1e3
     for i, (D, st) in enumerate(zip(Ds, bucket.operands[0]["members"])):
         check_product(D, st, bX[i], b_refs[i], f"spadd bucket member {i}",
                       device)
-    del Ds, bucket
+    del Ds
+    emit({"plan": "spadd_bucket", "input": f"zipf x{len(add_pairs)}",
+          "execute_ms": ms, "execute_ms_unchecked": unchecked_ms(bucket)})
+    del bucket
     main_launches = dict(AK.LAUNCHES)
     log(f"spadd main path {time.monotonic() - t_main:.1f}s, kernel "
         f"launches {main_launches}")
@@ -1076,8 +1356,9 @@ def run_flash(device: str, dims: dict, seed: int, timer) -> tuple:
 
 
 def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, gemm_n: int,
-        seed: int, timer) -> dict:
-    """All phases on ``device``; returns the ``kernels`` record."""
+        serve_n: int, unserved_ns, seed: int, timer) -> dict:
+    """All phases on ``device``, each followed by its guard line; returns
+    the ``kernels`` record."""
     from repro_torch.core import gen_spatial, gen_zipf
     from repro_torch.sparse import content_key
 
@@ -1095,6 +1376,15 @@ def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, gemm_n: int,
                  {"name": f"zipf_{zipf_n}_bs128", "A": zipf, "bs": 128}],
         members, seed, timer)
     memory_line("matvec", device)
+    guard_line("matvec")
+
+    r = run_selector(device, serve_n,
+                     [(n, spatial if n == spatial_n else None)
+                      for n in unserved_ns], members, seed, timer)
+    for name, recs in r.items():
+        results[name] += recs
+    memory_line("selector", device)
+    guard_line("selector")
 
     # each with the library call that computes A @ A on it
     gemm_inputs = [{"name": f"spatial_{gemm_n}_bs32",
@@ -1106,6 +1396,7 @@ def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, gemm_n: int,
     results.update(r)
     launches.update(l)
     memory_line("spgemm", device)
+    guard_line("spgemm")
 
     add_inputs = [{"name": f"spatial_{spatial_n}_bs32+seed1", "A": spatial,
                    "B": gen_spatial(spatial_n, seed=seed + 1), "bs": 32},
@@ -1117,6 +1408,7 @@ def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, gemm_n: int,
     results.update(r)
     launches.update(l)
     memory_line("spadd", device)
+    guard_line("spadd")
 
     for phase, fn, dims in (("moe", run_moe, MOE_DIMS),
                             ("flash", run_flash, FLASH_DIMS)):
@@ -1124,10 +1416,13 @@ def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, gemm_n: int,
         results.update(r)
         launches.update(l)
         memory_line(phase, device)
+        guard_line(phase)
 
     kernels = []
     for name, recs in results.items():
-        head = recs[0]   # gen_spatial, moe decode tick 0, flash B1 S4096
+        # head: gen_spatial, moe decode tick 0, flash B1 S4096; "inputs"
+        # gives every row of the kernel, the selector's picks among them
+        head = recs[0]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{KERNEL_SOURCE[name]}.cu",
@@ -1139,7 +1434,10 @@ def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, gemm_n: int,
             "library_ms": head["library_ms"],
             "input": head["input"],
             **({"bound_ms_fp32": head["bound_ms_fp32"]}
-               if "bound_ms_fp32" in head else {})})
+               if "bound_ms_fp32" in head else {}),
+            "inputs": [{k: r[k] for k in (
+                "input", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")} for r in recs]})
     check(sorted(k["name"] for k in kernels) == sorted(TPU_KERNELS),
           "every kernel has a row")
     over = [(r["kernel"], r["input"], r["share_of_bound"])
@@ -1206,7 +1504,8 @@ def main() -> int:
     build_all()
     t0 = time.monotonic()
     record = run("cuda", spatial_n=524288, zipf_n=8192,
-                 bucket_ns=(8192, 7168, 6144, 5120), gemm_n=65536, seed=0,
+                 bucket_ns=(8192, 7168, 6144, 5120), gemm_n=65536,
+                 serve_n=SERVE_N, unserved_ns=(131072, 524288), seed=0,
                  timer=cuda_timer)
     log(f"all phases {time.monotonic() - t0:.1f}s")
     print(json.dumps(record), flush=True)

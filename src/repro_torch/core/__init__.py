@@ -1,26 +1,50 @@
-"""Host-side core of the port: sparse containers, synthetic generators and
-the ``Schedule`` record — numpy copies of the parts of ``repro.core`` the
-spmv/spmm plan path needs (the port imports nothing from ``repro``).
+"""Host-side core of the port: sparse containers, synthetic generators, the
+SpChar metrics, counters, cost model and decision tree, and the
+``ScheduleTuner`` — numpy copies of ``repro.core`` (the port imports
+nothing from ``repro``).
 
   CSR / BSR / ELLBSR / SELLBSR        sparse containers (csr.py)
   spmv_oracle / spmm_oracle           float64 CSR products, no densify
+  characterize / partition_imbalance  static input metrics (metrics.py)
   GENERATORS / TABLE2 / gen_zipf      synthetic matrices (synthetic.py)
-  Schedule / SELL_SIGMA / BLOCK_SIZES schedule record (autotune.py)
+  corpus                              SuiteSparse-like corpus (dataset.py)
+  DecisionTreeRegressor / kfold_cv    tree engine (decision_tree.py)
+  spmv_counters / ...                 schedule counters (counters.py)
+  run_spmv_model / ...                roofline cost model (perfmodel.py)
+  Schedule / ScheduleTuner            loop-driven autotuning (autotune.py)
   select_moe_block_size               MoE tile rule (autotune.py)
-  partition_imbalance                 Eq. 5 imbalance (metrics.py)
-  Platform / H100_SXM                 platform model (platforms.py)
+  Platform / H100_SXM / PLATFORMS     platform model (platforms.py)
 """
-from .autotune import (BLOCK_SIZES, SELL_SIGMA, Schedule,
-                       select_moe_block_size)
+from .autotune import (BLOCK_SIZES, SELL_SIGMA, Schedule, ScheduleTuner,
+                       candidate_schedules, select_moe_block_size)
+from .counters import (sell_spmv_counters, shard_counters, spadd_counters,
+                       spgemm_counters, spmv_counters)
 from .csr import (BSR, CSR, ELLBSR, SELLBSR, ell_block_cap, sell_layout,
                   spmm_oracle, spmv_oracle)
-from .metrics import partition_imbalance
-from .platforms import H100_SXM, Platform
+from .dataset import DOMAINS, corpus
+from .decision_tree import DecisionTreeRegressor, kfold_cv, mape, r2_score
+from .metrics import (FEATURE_NAMES, THREAD_SWEEP, branch_entropy,
+                      characterize, index_affinity, partition_imbalance,
+                      reuse_affinity, sell_padding_fraction,
+                      sell_slice_widths, slice_imbalance, thread_imbalance)
+from .perfmodel import (execution_time, run_spadd_model, run_spgemm_model,
+                        run_spmv_model, run_spmv_sell_model, stall_breakdown,
+                        targets)
+from .platforms import H100_SXM, PLATFORMS, Platform
 from .synthetic import GENERATORS, TABLE2, gen_spatial, gen_zipf
 
 __all__ = [
-    "BLOCK_SIZES", "BSR", "CSR", "ELLBSR", "GENERATORS", "H100_SXM",
-    "Platform", "SELLBSR", "SELL_SIGMA", "Schedule", "TABLE2",
-    "ell_block_cap", "gen_spatial", "gen_zipf", "partition_imbalance",
-    "select_moe_block_size", "sell_layout", "spmm_oracle", "spmv_oracle",
+    "BLOCK_SIZES", "BSR", "CSR", "DOMAINS", "DecisionTreeRegressor",
+    "ELLBSR", "FEATURE_NAMES", "GENERATORS", "H100_SXM", "PLATFORMS",
+    "Platform", "SELLBSR", "SELL_SIGMA", "Schedule", "ScheduleTuner",
+    "TABLE2", "THREAD_SWEEP", "branch_entropy", "candidate_schedules",
+    "characterize", "corpus", "ell_block_cap", "execution_time",
+    "gen_spatial", "gen_zipf", "index_affinity", "kfold_cv", "mape",
+    "partition_imbalance", "r2_score", "reuse_affinity", "run_spadd_model",
+    "run_spgemm_model", "run_spmv_model", "run_spmv_sell_model",
+    "select_moe_block_size", "sell_layout", "sell_padding_fraction",
+    "sell_slice_widths", "sell_spmv_counters", "shard_counters",
+    "slice_imbalance", "spadd_counters", "spgemm_counters", "spmm_oracle",
+    "spmv_counters", "spmv_oracle", "stall_breakdown", "targets",
+    "thread_imbalance",
 ]

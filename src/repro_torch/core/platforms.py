@@ -52,3 +52,7 @@ H100_SXM = Platform(
     ici_links=18,
     mxu_dim=64,
 )
+
+# The platforms the port's selector can be fit for, by name (the serve
+# CLI's ``--platform``). The JAX package's TPU records are not the port's.
+PLATFORMS: Dict[str, Platform] = {p.name: p for p in (H100_SXM,)}

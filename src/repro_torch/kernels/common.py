@@ -7,8 +7,11 @@ launch helpers their wrappers share.
           against
 "auto"  — "cuda" for CUDA tensors, "torch" for CPU tensors
 
-There is no fallback: a kernel that fails to build or launch raises, and
-nothing retries it on the plain version.
+A kernel wrapper never falls back by itself: a kernel that fails to build
+or launch raises. The only fall is the guard's ladder in
+``repro_torch.sparse.resilience`` (torch -> dense, on the CPU only), which
+counts every fall and records it as a ``fallback`` trace event; on the card
+the guard counts a kernel's failure, quarantines it and raises.
 """
 from __future__ import annotations
 

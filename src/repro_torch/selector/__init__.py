@@ -1,9 +1,24 @@
-"""Schedule-selection pieces of the port (of ``repro.selector``): the
-routing fingerprint and the in-memory ``ScheduleCache`` that the MoE decode
-loop keys its tile choice by. The CSR fingerprint, predictor and
-``SelectorService`` come with the selector slice."""
-from .cache import ScheduleCache, schedule_from_dict, schedule_to_dict
-from .fingerprint import (FP_PRECISION, Fingerprint, routing_fingerprint)
+"""Online kernel-selection service of the port (of ``repro.selector``):
+  fingerprint        cheap static features + stable hash per CSR, and the
+                     MoE routing fingerprint (fingerprint.py)
+  SchedulePredictor  trained tree -> full Schedule + confidence (predictor.py)
+  ScheduleCache      persistent JSON LRU keyed by fingerprint (cache.py)
+  SelectorService    batched requests, schedule-bucketed stacked launches on
+                     the card, low-confidence fallback to the autotune
+                     verify pass (service.py); CLI entry:
+                     ``python -m repro_torch.selector.serve``
+The drift monitor comes with mutation and drift.
+"""
+from .cache import (CACHE_FORMAT_VERSION, ScheduleCache, schedule_from_dict,
+                    schedule_to_dict)
+from .fingerprint import (FP_PRECISION, Fingerprint, fingerprint,
+                          routing_fingerprint)
+from .predictor import Prediction, SchedulePredictor, retraining_row
+from .service import Decision, Request, SelectorService
 
-__all__ = ["FP_PRECISION", "Fingerprint", "ScheduleCache",
-           "routing_fingerprint", "schedule_from_dict", "schedule_to_dict"]
+__all__ = [
+    "CACHE_FORMAT_VERSION", "Decision", "FP_PRECISION", "Fingerprint",
+    "Prediction", "Request", "ScheduleCache", "SchedulePredictor",
+    "SelectorService", "fingerprint", "retraining_row", "routing_fingerprint",
+    "schedule_from_dict", "schedule_to_dict",
+]

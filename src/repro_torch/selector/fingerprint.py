@@ -1,12 +1,17 @@
-"""Routing fingerprints: the key of the MoE decode schedule cache (copy of
-``repro.selector.fingerprint`` without the CSR ``fingerprint()``, which
-comes with the selector).
+"""Matrix and routing fingerprints: the cache/prediction keys of the
+selection service and of the MoE decode cache (copy of
+``repro.selector.fingerprint``).
 
-A fingerprint is a feature vector canonicalized to a fixed decimal
-precision and hashed. Rounding before hashing makes the key deterministic;
-the cache double-checks the full rounded vector on every hit, so a hash
-collision is served as a miss. The key is the same sha1 as the JAX
-package's for the same histogram, ``d_model`` and platform name.
+A matrix fingerprint is the paper's static characterization vector
+(metrics.py Eq. 1-6 — no schedule simulation, no kernel run) plus the exact
+shape/nnz, canonicalized to a fixed decimal precision and hashed. Rounding
+before hashing makes the key deterministic: the float features come out of
+subsampled streams and log transforms whose last bits are not meaningful,
+so two byte-identical matrices must map to one key while structurally
+different matrices keep distinct keys (shape/nnz are exact, and the cache
+double-checks the full rounded vector on every hit, so a hash collision is
+served as a miss). The keys are the same sha1 as the JAX package's for the
+same matrix, or the same histogram, ``d_model`` and platform name.
 """
 from __future__ import annotations
 
@@ -16,7 +21,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from ..core.metrics import partition_imbalance
+from ..core import metrics as metrics_mod
+from ..core.csr import CSR
 
 # Decimal digits kept per feature when forming the hash key. All features
 # are O(1)-magnitude (affinities/entropies in [0,1], log10 sizes < ~10), so
@@ -47,6 +53,20 @@ class Fingerprint:
     nnz: int
 
 
+def fingerprint(csr: CSR, precision: int = FP_PRECISION) -> Fingerprint:
+    """Characterize ``csr`` once and derive the stable cache key."""
+    feats = metrics_mod.characterize(csr)
+    canonical = tuple(sorted((k, _canon(v, precision))
+                             for k, v in feats.items()))
+    payload = "|".join(
+        [f"v1;shape={csr.shape[0]}x{csr.shape[1]};nnz={csr.nnz}"]
+        + [f"{k}={t}" for k, t in canonical])
+    key = hashlib.sha1(payload.encode("utf-8")).hexdigest()
+    return Fingerprint(key=key, canonical=canonical, features=dict(feats),
+                       shape=(int(csr.shape[0]), int(csr.shape[1])),
+                       nnz=int(csr.nnz))
+
+
 def routing_fingerprint(tokens_per_expert, d_model: int, platform: str = "",
                         precision: int = FP_PRECISION) -> Fingerprint:
     """Fingerprint of an MoE routing histogram for the serving decode cache.
@@ -60,7 +80,8 @@ def routing_fingerprint(tokens_per_expert, d_model: int, platform: str = "",
     n_e = int(counts.size)
     total = float(counts.sum())
     feats = {
-        "moe_imbalance": partition_imbalance(counts, max(n_e, 1)),
+        "moe_imbalance": metrics_mod.partition_imbalance(counts,
+                                                       max(n_e, 1)),
         "moe_log_tokens": float(np.log10(total + 1.0)),
         "moe_n_experts": float(n_e),
         "moe_d_model": float(d_model),

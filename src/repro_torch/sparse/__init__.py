@@ -16,18 +16,31 @@ flash_attention):
 
 Every entry point takes ``device=`` ("cuda" by default; "cpu" runs the
 plain PyTorch versions) and raises when the card is asked for and there is
-none.
+none. Every build and launch runs under a ``GuardedExecutor`` (the
+fallback ladder torch -> dense on the CPU, the CUDA kernel alone on the
+card; the NaN guard and the quarantine;
+``resilience``); ``plan(op, operands, selector=service)`` takes its
+schedule from a ``SelectorService`` or a fitted ``ScheduleTuner``.
 """
 from . import ops_builtin  # noqa: F401  (registers the built-in ops)
 from .ops_builtin import moe_tile_schedule, route_and_pad
 from .plan import Plan, launch_count, plan, plan_bucket, reset_counters
 from .prepared import PreparedStore, array_key, bucket_edge, content_key
 from .registry import OpSpec, get_op, list_ops, register_op
+from .resilience import (FALLBACK_CHAIN, Deadline, FaultInjector,
+                         GuardedExecutor, InjectedFault, NonFiniteOutput,
+                         Quarantine, default_executor, default_quarantine,
+                         install_injector, output_finite, register_dense_ref,
+                         reset_resilience, with_backoff)
 from .tensor import LAYOUT_FIELDS, SparseMeta, SparseTensor
 
 __all__ = [
-    "LAYOUT_FIELDS", "OpSpec", "Plan", "PreparedStore", "SparseMeta",
-    "SparseTensor", "array_key", "bucket_edge", "content_key", "get_op",
-    "launch_count", "list_ops", "moe_tile_schedule", "plan", "plan_bucket",
-    "register_op", "reset_counters", "route_and_pad",
+    "FALLBACK_CHAIN", "Deadline", "FaultInjector", "GuardedExecutor",
+    "InjectedFault", "LAYOUT_FIELDS", "NonFiniteOutput", "OpSpec", "Plan",
+    "PreparedStore", "Quarantine", "SparseMeta", "SparseTensor",
+    "array_key", "bucket_edge", "content_key", "default_executor",
+    "default_quarantine", "get_op", "install_injector", "launch_count",
+    "list_ops", "moe_tile_schedule", "output_finite", "plan", "plan_bucket",
+    "register_dense_ref", "register_op", "reset_counters",
+    "reset_resilience", "route_and_pad", "with_backoff",
 ]

@@ -26,11 +26,15 @@ A bucket of members is ONE launch with the member on the kernel grid
 (``blockIdx.z``), where the JAX pallas path looped over members in Python.
 A content-pure bucket (every member the same matrix) is one multi-RHS
 launch of the single-request container instead.
+
+Each op also registers its dense reference, the guard's last rung
+(``resilience.register_dense_ref``): numpy on the host, built lazily and
+capped, returning what the op returns on its other rungs.
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +60,7 @@ from ..selector.fingerprint import routing_fingerprint
 from .plan import Plan
 from .prepared import PreparedStore, array_key, bucket_edge, content_key
 from .registry import register_op
+from .resilience import check_fault, dense_ref_cap, register_dense_ref
 from .tensor import SparseMeta, SparseTensor
 
 MATVEC_LAYOUTS = ("ell", "sell", "dense")
@@ -82,7 +87,9 @@ _LAYOUT_ARGS = {
 
 def _cached(store: Optional[PreparedStore], key, builder):
     """Route a host-prep build through the PreparedStore when one is in
-    play (``key=None`` marks an uncacheable operand)."""
+    play (``key=None`` marks an uncacheable operand). The ``prep`` fault
+    site fires here, before any host prep."""
+    check_fault("prep", str(key) if key is not None else "uncached")
     if store is None:
         return builder()
     return store.get_or_build(key, builder)
@@ -1139,7 +1146,7 @@ def moe_tile_schedule(tokens_per_expert, d_model: int, platform,
                                  d_model, platform)
     sched = Schedule("bsr", tile, 1.0)
     if cache is not None:
-        cache.put(fp, sched)
+        cache.put(fp, sched, "moe-rule")
     return sched
 
 
@@ -1164,6 +1171,175 @@ def _plan_flash(operands, schedule: Optional[Schedule], backend: str, *,
 
     return Plan(op="flash_attention", schedule=schedule, backend=backend,
                 _run=run, device=device)
+
+
+# ---------------------------------------------------------------------------
+# dense references — the guard's terminal fallback rung (DESIGN.md §11)
+# ---------------------------------------------------------------------------
+# Pure-numpy implementations matched to each op's execute() contract: same
+# runtime signature, same output type on the plan's device (a tensor, or a
+# "bsr" SparseTensor for spgemm/spadd), computed on the host. Builders are
+# LAZY by contract (resilience._DENSE_REFS): the builder call does only
+# cheap type + size-cap validation — raising TypeError means the guard has
+# no dense rung and the chain ends at torch — while the O(n*m)
+# densification is deferred (and memoized) inside the returned run, so
+# plan() never materializes a dense copy unless the guard actually falls
+# to this rung.
+
+def _dense_elems(a) -> int:
+    """Element count the dense reference would materialize for one operand
+    (cheap: shapes only). Raises TypeError for operand types with no dense
+    reference — the same signal `_dense_of` would give, moved to plan time."""
+    if isinstance(a, (CSR, BSR)):
+        n, m = a.shape
+        return int(n) * int(m)
+    if isinstance(a, SparseTensor):
+        if a.layout == "dense":
+            tr, tc = a.true_shape
+            return int(tr) * int(tc)
+        raise TypeError(f"no dense reference for a prepared {a.layout!r} "
+                        "SparseTensor (plan from the CSR to enable the "
+                        "dense rung)")
+    if isinstance(a, np.ndarray):
+        return int(a.size)
+    raise TypeError(f"no dense reference for operand {type(a).__name__}")
+
+
+def _dense_check(a) -> None:
+    """Plan-time eligibility gate for the dense rung: unsupported operand
+    types and over-cap shapes raise TypeError (→ no dense rung) WITHOUT
+    touching any data, so planning a huge matrix never OOMs here."""
+    elems = _dense_elems(a)
+    cap = dense_ref_cap()
+    if elems > cap:
+        raise TypeError(f"dense reference refused: {elems} elements exceeds "
+                        f"the {cap}-element cap (REPRO_DENSE_REF_MAX_ELEMS)")
+
+
+def _dense_of(a) -> np.ndarray:
+    if isinstance(a, CSR):
+        return a.to_dense().astype(np.float32)
+    if isinstance(a, BSR):
+        return np.asarray(a.to_dense(), np.float32)
+    if isinstance(a, SparseTensor):
+        if a.layout == "dense":
+            tr, tc = a.true_shape
+            return a.arrays["dense"].cpu().numpy()[:tr, :tc]
+        raise TypeError(f"no dense reference for a prepared {a.layout!r} "
+                        "SparseTensor (plan from the CSR to enable the "
+                        "dense rung)")
+    if isinstance(a, np.ndarray):
+        return np.asarray(a, np.float32)
+    raise TypeError(f"no dense reference for operand {type(a).__name__}")
+
+
+def _lazy_dense(a) -> Callable[[], np.ndarray]:
+    """Deferred, memoized densification: the dense copy is built on the
+    first call — i.e. only once the guard has actually fallen to the dense
+    rung — and reused across subsequent launches of the same plan."""
+    _dense_check(a)
+    box: list = []
+
+    def get() -> np.ndarray:
+        if not box:
+            box.append(_dense_of(a))
+        return box[0]
+
+    return get
+
+
+def _host(x) -> np.ndarray:
+    """A runtime input as a float32 host array (tensors on any device)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(x, np.float32)
+
+
+def _dense_to_bsr(dense: np.ndarray, bs: int, schedule: Optional[Schedule],
+                  device: torch.device) -> SparseTensor:
+    """Re-block a dense product into the "bsr" SparseTensor spgemm/spadd
+    callers get on the plan's device (block structure may differ from the
+    symbolic union — ``to_dense()`` equivalence is the contract)."""
+    bsr = BSR.from_csr(CSR.from_dense(np.asarray(dense, np.float32)), bs)
+    return SparseTensor.from_layout(
+        bsr, schedule=(schedule if schedule is not None
+                       else Schedule("bsr", bs, 1.0)), device=device)
+
+
+def _dense_ref_matvec(operands, schedule, device: torch.device, **_):
+    (a,) = operands
+    ad = _lazy_dense(a)
+
+    def run(x):
+        d = ad()
+        x = _host(x)
+        if x.shape[0] > d.shape[1]:     # bucket-padded RHS: pad is zeros
+            x = x[: d.shape[1]]
+        return torch.as_tensor(d @ x, device=device)
+
+    return run
+
+
+def _dense_ref_spgemm(operands, schedule, device: torch.device,
+                      block_size: int = 128, **_):
+    a, b = operands
+    ad, bd = _lazy_dense(a), _lazy_dense(b)
+    bs = schedule.block_size if schedule is not None else block_size
+
+    def run():
+        return _dense_to_bsr(ad() @ bd(), bs, schedule, device)
+
+    return run
+
+
+def _dense_ref_spadd(operands, schedule, device: torch.device,
+                     block_size: int = 128, **_):
+    a, b = operands
+    ad, bd = _lazy_dense(a), _lazy_dense(b)
+    bs = schedule.block_size if schedule is not None else block_size
+
+    def run():
+        return _dense_to_bsr(ad() + bd(), bs, schedule, device)
+
+    return run
+
+
+def _dense_ref_moe(operands, schedule, device: torch.device,
+                   tile_m: Optional[int] = None, **_):
+    (tile_expert,) = operands
+    tm = tile_m if tile_m is not None else (
+        schedule.block_size if schedule is not None else 128)
+
+    def run(x, w):
+        te = np.asarray(torch.as_tensor(tile_expert).cpu(), np.int64).ravel()
+        x, w = _host(x), _host(w)
+        out = np.zeros((x.shape[0], w.shape[2]), np.float32)
+        for i, e in enumerate(te):
+            lo = i * tm
+            hi = min(lo + tm, x.shape[0])
+            if lo >= hi:
+                break
+            out[lo:hi] = x[lo:hi] @ w[int(e)]
+        return torch.as_tensor(out, device=device)
+
+    return run
+
+
+def _dense_ref_flash(operands, schedule, device: torch.device,
+                     causal: bool = True, **_):
+    def run(q, k, v):
+        q, k, v = _host(q), _host(k), _host(v)
+        s = np.einsum("bqd,bkd->bqk", q, k) / np.sqrt(q.shape[-1])
+        if causal:
+            mask = np.tril(np.ones(s.shape[-2:], bool))
+            s = np.where(mask, s, -np.inf)
+        s = s - s.max(axis=-1, keepdims=True)
+        p = np.exp(s)
+        p = p / p.sum(axis=-1, keepdims=True)
+        return torch.as_tensor(np.einsum("bqk,bkd->bqd", p, v),
+                               device=device)
+
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -1216,3 +1392,9 @@ register_op(
     "flash_attention", _plan_flash,
     operand_spec="() -> execute(q, k, v: (BH, S, D))",
     layouts=("ell",))
+register_dense_ref("spmv", _dense_ref_matvec)
+register_dense_ref("spmm", _dense_ref_matvec)
+register_dense_ref("spgemm", _dense_ref_spgemm)
+register_dense_ref("spadd", _dense_ref_spadd)
+register_dense_ref("moe_gmm", _dense_ref_moe)
+register_dense_ref("flash_attention", _dense_ref_flash)

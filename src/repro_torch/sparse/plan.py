@@ -1,38 +1,52 @@
 """plan/execute: the compile-style front door to the sparse kernels (port of
-``repro.sparse.plan`` for spmv, spmm, spgemm and spadd).
+``repro.sparse.plan`` without its sharded path).
 
-``plan(op, operands, schedule=...)`` runs the op's host-side prep once and
-returns a ``Plan`` — an executable carrying the resolved schedule, the
-backend and the prepared device operands. ``plan_bucket`` builds ONE launch
-for a whole same-schedule bucket: the member axis is on the kernel grid.
+``plan(op, operands, schedule=... | selector=...)`` resolves a ``Schedule``
+(explicitly, through a fitted ``ScheduleTuner``, or through the online
+``SelectorService`` cache/tree/verify path), runs the op's host-side prep
+once, and returns a ``Plan`` — an executable carrying the resolved
+schedule, the selection provenance (source / fingerprint / confidence /
+modeled cost), the backend and the prepared device operands.
+``plan_bucket`` builds ONE launch for a whole same-schedule bucket: the
+member axis is on the kernel grid.
 
 Device and backend are explicit. Every entry point takes ``device=``, the
 card by default, and raises when the card is asked for and there is none;
 ``backend="auto"`` is the CUDA kernel on the card and the plain PyTorch
-version on the CPU. There is no fallback ladder: the planner is called
-directly, and a kernel that fails to build or launch raises.
+version on the CPU, resolved before the guard is built. Every build and
+every launch runs under the ``GuardedExecutor`` (``resilience``): a
+transient prep fault retries; on the CPU a failed or non-finite launch
+falls one rung down the ladder torch -> dense (counted, traced, the combo
+quarantined), and past the last rung the error is raised. On the card the
+ladder is the CUDA kernel alone: its failure is counted, the combo
+quarantined and the error raised, never served by the plain version or
+the host. A kernel wrapper never falls back by itself.
 
 Telemetry, under the JAX package's names in the process
 ``MetricsRegistry``: ``plan.launches.<op>`` ticks once per
 ``Plan.execute`` (a bucket of N members bumps it once), and each execute is
 timed into the ``launch_ms.<op>`` histogram, the ``launch`` trace span and
-``Plan.last_measured_s``. ``execute`` synchronises the current stream before
-it reads the clock, so the time is end to end, not the enqueue. There is no
-``trace_count``: PyTorch runs eagerly and never retraces.
+``Plan.last_measured_s``, and, where the plan carries a modeled time, its
+log10 ratio to it into ``residual_log10.<op>``. ``execute`` synchronises
+the current stream before it reads the clock, so the time is end to end,
+not the enqueue; the guard's finiteness check runs inside the timed launch.
+There is no ``trace_count``: PyTorch runs eagerly and never retraces.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..core.autotune import Schedule
-from ..core.csr import BSR, ELLBSR, SELLBSR
+from ..core.csr import BSR, CSR, ELLBSR, SELLBSR
 from ..kernels.common import resolve_backend, resolve_device
 from ..obs import default_registry, trace as obs_trace
+from . import resilience
 from .prepared import PreparedStore
 from .registry import get_op
 from .tensor import SparseTensor
@@ -63,9 +77,13 @@ class Plan:
     _run: Callable
     device: torch.device = torch.device("cpu")
     operands: tuple = ()                # prepared device operands
-    source: str = "explicit"            # "explicit" | "default"
+    source: str = "explicit"            # "explicit" | "tuner" | "selector-*"
+    fingerprint_key: str = ""
     modeled_time_s: Optional[float] = None
+    confidence: Optional[float] = None
     n_members: int = 1                  # >1 for stacked bucket plans
+    # end-to-end time of the most recent execute: the launch, the guard's
+    # finiteness check and the stream synchronize
     last_measured_s: Optional[float] = None
 
     def execute(self, *runtime):
@@ -81,14 +99,20 @@ class Plan:
             dt = time.monotonic() - t0
             self.last_measured_s = dt
             s = self.schedule
+            modeled_ms = (self.modeled_time_s * 1e3
+                          if self.modeled_time_s else None)
+            # backend read AFTER the run: the guard rewrites it when the
+            # launch fell down the fallback ladder
             ev.update(op=self.op, backend=self.backend,
                       layout=("dense" if s is None or s.backend == "dense"
                               else s.layout),
-                      measured_ms=dt * 1e3,
-                      modeled_ms=(self.modeled_time_s * 1e3
-                                  if self.modeled_time_s else None),
+                      measured_ms=dt * 1e3, modeled_ms=modeled_ms,
                       source=self.source, n_members=self.n_members)
-        default_registry().observe(f"launch_ms.{self.op}", dt * 1e3)
+        reg = default_registry()
+        reg.observe(f"launch_ms.{self.op}", dt * 1e3)
+        if modeled_ms:
+            reg.observe(f"residual_log10.{self.op}",
+                        math.log10(max(dt * 1e3, 1e-9) / modeled_ms))
         return out
 
     __call__ = execute
@@ -108,47 +132,116 @@ class Plan:
                 f"via {self.source}{extra}")
 
 
-def _refuse_unported(selector, executor) -> None:
-    """``selector=`` and ``executor=`` come with later slices of the port;
-    until then they raise instead of being dropped."""
-    if executor is not None:
-        raise TypeError("executor= (GuardedExecutor) is not ported yet: it "
-                        "comes with ROADMAP Queue A item 1, guarded "
-                        "execution")
-    if selector is not None:
-        raise TypeError("selector= is not ported yet: it comes with ROADMAP "
-                        "Queue A item 2, the selector service")
+def _resolve_with_selector(selector, A: CSR, op: str = "",
+                           quarantine=None):
+    """(Schedule, provenance, operand content key) from a SelectorService
+    or a ScheduleTuner. The service already hashed the matrix bytes for its
+    fingerprint memo; the key is forwarded so the planner's PreparedStore
+    lookup does not pay a second O(nnz) hashing pass. ``quarantine`` is the
+    registry the tuner path consults (defaults to the process-wide one)."""
+    if not isinstance(A, CSR):
+        raise TypeError("selector-based planning needs a CSR first operand, "
+                        f"got {type(A).__name__}")
+    if hasattr(selector, "process_pending"):      # SelectorService
+        dec = selector.select(A)
+        return dec.schedule, {
+            "source": f"selector-{dec.source}",
+            "fingerprint_key": dec.fingerprint_key,
+            "modeled_time_s": dec.modeled_time_s,
+            "confidence": dec.confidence,
+        }, getattr(dec, "ck", None)
+    if hasattr(selector, "select"):               # ScheduleTuner
+        schedule, info = selector.select(A)
+        source = "tuner"
+        q = (quarantine if quarantine is not None
+             else resilience.default_quarantine())
+        if op and schedule is not None \
+                and q.blocked_any_backend(op, schedule):
+            # never re-serve a poisoned schedule: re-argmin the candidate
+            # grid minus the quarantine (None = everything blocked; keep
+            # the pick — a degraded answer beats no answer)
+            resel = resilience.unquarantined_select(selector, A, op, q)
+            if resel is not None:
+                schedule, source = resel, "tuner-requarantined"
+        return schedule, {
+            "source": source,
+            "modeled_time_s": info.get("verified_time_s"),
+        }, None
+    raise _unsupported_selector(selector)
+
+
+def _unsupported_selector(selector) -> TypeError:
+    return TypeError(f"unsupported selector {type(selector).__name__}; "
+                     "pass a SelectorService or a fitted ScheduleTuner")
 
 
 def plan(op: str, operands, schedule: Optional[Schedule] = None,
          backend: str = "auto", store: Optional[PreparedStore] = None,
-         device="cuda", *, selector=None, executor=None,
+         device="cuda", *, selector=None,
+         executor: Optional[resilience.GuardedExecutor] = None,
          **op_kwargs) -> Plan:
     """Build an executable ``Plan`` for a registered sparse op on
     ``device`` (the card unless ``device="cpu"``).
 
-    ``schedule`` names the layout and block size; without one the op
-    planner's defaults apply. ``store`` is a ``PreparedStore``: repeat
-    traffic for the same (matrix bytes, schedule, device) reuses the
-    finished device operands and skips host prep. ``selector`` and
-    ``executor`` raise ``TypeError`` (not ported yet), as does any keyword
-    the op's planner does not take.
+    Exactly one schedule source applies: an explicit ``schedule``, a
+    ``selector`` (``SelectorService`` -> cache/tree/verify path, or a
+    fitted ``ScheduleTuner`` -> tree-argmin + simulation verify), or the
+    op planner's defaults.
+
+    ``store`` is a ``PreparedStore``: repeat traffic for the same (matrix
+    bytes, schedule, device) reuses the finished device operands and skips
+    host prep. When planning through a ``SelectorService`` the service's
+    own store is used unless one is passed explicitly.
+
+    ``executor`` is the ``GuardedExecutor`` (fallback policy + failure
+    ledger + quarantine) the build and every launch run under; it defaults
+    to the selector's own executor when planning through a
+    ``SelectorService``, else the process-wide default. Any keyword the
+    op's planner does not take raises ``TypeError``.
     """
-    _refuse_unported(selector, executor)
     spec = get_op(op)
     if not isinstance(operands, tuple):
         operands = (operands,)
     dev = resolve_device(device)
     backend = resolve_backend(backend, dev)
+    provenance: Dict[str, object] = {}
+    operand_key = None
+    if selector is not None and store is None:
+        store = getattr(selector, "prepared_store", None)
+    if executor is None and selector is not None:
+        executor = getattr(selector, "executor", None)
+    quarantine = executor.quarantine if executor is not None else None
+    if schedule is None and selector is not None:
+        schedule, provenance, operand_key = _resolve_with_selector(
+            selector, operands[0], op, quarantine=quarantine)
     if schedule is not None and schedule.backend != "dense" \
             and spec.layouts and schedule.layout not in spec.layouts:
         raise ValueError(f"op {op!r} supports layouts {spec.layouts}, "
                          f"schedule asks for {schedule.layout!r}")
     if store is not None and spec.planner_store_ok:
         op_kwargs = dict(op_kwargs, store=store)
+        if operand_key is not None and spec.planner_operand_key_ok:
+            op_kwargs.setdefault("operand_key", operand_key)
+    # guarded build + guarded launch (DESIGN.md §11): transient prep faults
+    # retry, persistent ones degrade to the op's dense reference (on the
+    # CPU; on the card they raise); every execute runs through the backend
+    # fallback ladder, whose rebuild prepares one rung down through the
+    # same store
+    dense_run = resilience.make_dense_run(op, operands, schedule,
+                                          dict(op_kwargs, device=dev))
     with obs_trace.span("prep", f"plan:{op}", op=op):
-        return spec.planner(operands, schedule, backend, device=dev,
-                            **op_kwargs)
+        p = resilience.guarded_build(
+            lambda: spec.planner(operands, schedule, backend, device=dev,
+                                 **op_kwargs),
+            op=op, schedule=schedule, dense_run=dense_run,
+            executor=executor)
+    resilience.guard_plan(
+        p, rebuild=lambda b: spec.planner(operands, schedule, b, device=dev,
+                                          **op_kwargs),
+        dense_run=dense_run, executor=executor)
+    for k, v in provenance.items():
+        setattr(p, k, v)
+    return p
 
 
 def _member_layout(m) -> Optional[str]:
@@ -170,7 +263,9 @@ def _member_layout(m) -> Optional[str]:
 def plan_bucket(op: str, operands: Sequence, schedule: Schedule,
                 backend: str = "auto",
                 store: Optional[PreparedStore] = None, device="cuda", *,
-                selector=None, executor=None, **op_kwargs) -> Plan:
+                selector=None,
+                executor: Optional[resilience.GuardedExecutor] = None,
+                **op_kwargs) -> Plan:
     """ONE launch for a whole same-schedule bucket.
 
     ``operands`` is a list of per-member operands (CSR or prepared; an
@@ -178,10 +273,20 @@ def plan_bucket(op: str, operands: Sequence, schedule: Schedule,
     the matching list of runtime inputs (none for spgemm/spadd) and
     returns the per-member outputs. Every member is validated against the
     bucket's shared Schedule up front, so a mixed bucket fails here with a
-    per-member error. ``selector`` and ``executor`` raise ``TypeError``
-    (not ported yet), as does any keyword the bucket planner does not take.
+    per-member error. The build and the launch run under ``executor``
+    (the process-wide ``GuardedExecutor`` by default); the dense rung
+    serves each member from its own dense reference. A ``SelectorService``
+    as ``selector`` lends the bucket its store and executor unless they are
+    passed (the bucket's shared schedule is still the caller's). Any
+    keyword the bucket planner does not take raises ``TypeError``.
     """
-    _refuse_unported(selector, executor)
+    if selector is not None:
+        if not hasattr(selector, "process_pending"):
+            raise _unsupported_selector(selector)
+        if store is None:
+            store = selector.prepared_store
+        if executor is None:
+            executor = selector.executor
     spec = get_op(op)
     if spec.bucket_planner is None:
         raise ValueError(f"op {op!r} has no stacked bucket launch")
@@ -209,7 +314,16 @@ def plan_bucket(op: str, operands: Sequence, schedule: Schedule,
     backend = resolve_backend(backend, dev)
     if store is not None and spec.bucket_store_ok:
         op_kwargs = dict(op_kwargs, store=store)
+    dense_run = resilience.make_dense_bucket_run(
+        op, members, schedule, dict(op_kwargs, device=dev))
     with obs_trace.span("prep", f"plan_bucket:{op}", op=op,
                         n_members=len(members)):
-        return spec.bucket_planner(members, schedule, backend, device=dev,
-                                   **op_kwargs)
+        p = resilience.guarded_build(
+            lambda: spec.bucket_planner(members, schedule, backend,
+                                        device=dev, **op_kwargs),
+            op=op, schedule=schedule, dense_run=dense_run,
+            n_members=len(members), executor=executor)
+    return resilience.guard_plan(
+        p, rebuild=lambda b: spec.bucket_planner(members, schedule, b,
+                                                 device=dev, **op_kwargs),
+        dense_run=dense_run, executor=executor)

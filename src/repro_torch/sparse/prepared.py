@@ -14,20 +14,19 @@ plus a dict lookup and skips host prep entirely.
   padding buys stable shapes for the store's stacked bucket arrays and keeps
   the containers leaf-for-leaf equal to the JAX package's.
 
-Left out until their slices land: the fault-injection sites, the mutation
-rekeying (``pop_matching`` / versioned content keys), and the donation
-check ``_leaves_alive`` — a torch tensor cannot be deleted out from under a
-reference the store holds, so there is nothing to check.
+An injected ``store-evict`` fault loses the entry on a hit and serves a
+miss (counted in ``fault_evictions``); the caller rebuilds as after a real
+eviction. Left out until their slices land: the mutation rekeying
+(``pop_matching`` / versioned content keys). The JAX package's donation
+check ``_leaves_alive`` has no counterpart: a torch tensor cannot be
+deleted out from under a reference the store holds.
 """
 from __future__ import annotations
 
 import hashlib
-import json
 import os
-import tempfile
-import zlib
 from collections import OrderedDict
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +34,9 @@ import torch
 from ..core.csr import CSR
 from ..obs import default_registry, ordered, scoped_int
 from ..obs import trace as obs_trace
+from .resilience import (InjectedFault, atomic_write_json, checksum_entries,
+                         fault_fired, load_json_guarded, note_recovery,
+                         verify_entries)
 
 STORE_INDEX_VERSION = 1
 
@@ -95,45 +97,6 @@ def entry_nbytes(value: Any) -> int:
     return entry_nbytes(arrays) if isinstance(arrays, dict) else 0
 
 
-# ------------------------------------------------ checksummed persistence
-
-def _entry_checksum(entry: Dict) -> int:
-    clean = {k: v for k, v in entry.items() if k != "crc"}
-    return zlib.crc32(json.dumps(clean, sort_keys=True,
-                                 separators=(",", ":")).encode())
-
-
-def _verify_entries(entries: Sequence) -> Tuple[List[Dict], int]:
-    """(valid entries with ``crc`` stripped, corrupt count): one flipped bit
-    costs one entry, not the file."""
-    ok: List[Dict] = []
-    corrupt = 0
-    for e in entries:
-        if not isinstance(e, dict) or e.get("crc") != _entry_checksum(e):
-            corrupt += 1
-            continue
-        ok.append({k: v for k, v in e.items() if k != "crc"})
-    return ok, corrupt
-
-
-def _atomic_write_json(path: str, payload: Dict) -> None:
-    """Temp file in the target directory, fsync, ``os.replace``: a crash at
-    any point leaves the previous file intact."""
-    d = os.path.dirname(os.path.abspath(path)) or "."
-    fd, tmp = tempfile.mkstemp(prefix=os.path.basename(path) + ".",
-                               suffix=".tmp", dir=d)
-    try:
-        with os.fdopen(fd, "w") as f:
-            json.dump(payload, f, indent=1, sort_keys=True)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise
-
-
 class PreparedStore:
     """Byte-budgeted LRU of finished prepared operands.
 
@@ -150,6 +113,7 @@ class PreparedStore:
     puts = scoped_int("puts")
     evictions = scoped_int("evictions")
     rejected = scoped_int("rejected")
+    fault_evictions = scoped_int("fault_evictions")
     save_failures = scoped_int("save_failures")
     corrupt_loads = scoped_int("corrupt_loads")
 
@@ -169,6 +133,17 @@ class PreparedStore:
         entry = self._entries.get(key)
         if entry is None:
             self.misses += 1
+            return None
+        if fault_fired("store-evict", str(key)):
+            # injected fault: lose the entry, recover by serving a miss —
+            # the caller rebuilds exactly as after a real eviction
+            self._entries.pop(key)
+            self.bytes_in_use -= entry[1]
+            self.fault_evictions += 1
+            self.misses += 1
+            note_recovery("store-evict")
+            obs_trace.emit("store_evict", "fault", reason="fault",
+                           nbytes=entry[1])
             return None
         self._entries.move_to_end(key)
         self.hits += 1
@@ -222,12 +197,14 @@ class PreparedStore:
         payload = {
             "version": STORE_INDEX_VERSION,
             "telemetry": self.telemetry(),
-            "entries": [dict(e, crc=_entry_checksum(e)) for e in entries],
+            "entries": checksum_entries(entries),
         }
         try:
-            _atomic_write_json(path, payload)
-        except OSError:
+            atomic_write_json(path, payload)
+        except (RuntimeError, OSError) as e:
             self.save_failures += 1
+            if isinstance(e, InjectedFault):
+                note_recovery(e.site)
             return False
         return True
 
@@ -237,19 +214,16 @@ class PreparedStore:
         truncated or bit-flipped file loads as empty-or-partial context,
         never a crash."""
         self.prior = {}
-        try:
-            with open(path) as f:
-                payload = json.load(f)
-        except (OSError, ValueError):
+        payload = load_json_guarded(path)
+        if payload is None:
             if os.path.exists(path):
                 self.corrupt_loads += 1
             return self.prior
-        if not isinstance(payload, dict) \
-                or payload.get("version") != STORE_INDEX_VERSION:
+        if payload.get("version") != STORE_INDEX_VERSION:
             return self.prior
         raw = payload.get("entries", [])
-        entries, corrupt = _verify_entries(raw if isinstance(raw, list)
-                                           else [])
+        entries, corrupt = verify_entries(raw if isinstance(raw, list)
+                                          else [])
         self.corrupt_loads += corrupt
         tel = payload.get("telemetry", {})
         self.prior = {"telemetry": tel if isinstance(tel, dict) else {},
@@ -267,6 +241,7 @@ class PreparedStore:
             "puts": float(self.puts),
             "evictions": float(self.evictions),
             "rejected": float(self.rejected),
+            "fault_evictions": float(self.fault_evictions),
             "save_failures": float(self.save_failures),
             "corrupt_loads": float(self.corrupt_loads),
             "hit_rate": self.hits / lookups if lookups else 0.0,

@@ -36,6 +36,7 @@ from repro_torch.kernels.bsr_spadd import kernel as AK
 from repro_torch.kernels.bsr_spgemm import kernel as GK
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.bsr_spmv import ops, ref
+from repro_torch.sparse import GuardedExecutor as TGuardedExecutor
 from repro_torch.sparse import (PreparedStore, SparseTensor, content_key,
                                 plan, plan_bucket)
 from repro_torch.sparse.ops_builtin import (_build_matvec_bucket,
@@ -259,8 +260,8 @@ def _two_block_csr(n, bs, rng):
 
 
 def _assert_plan_ell_nonfinite_matches_jax(op, bad, where, cols):
-    """The port's ELL plan and the JAX facade's (jnp, NaN guard off, which
-    would serve a dense fallback) on x with ``bad`` at row 3 (in x[0:bs],
+    """The port's ELL plan and the JAX facade's (jnp), both with their NaN
+    guards off (on, each would raise NonFiniteOutput), on x with ``bad`` at row 3 (in x[0:bs],
     which every pad slot reads) or in a real block's row, at the column
     index ``cols`` (``()`` for SpMV)."""
     n, bs = 200, 16
@@ -271,7 +272,8 @@ def _assert_plan_ell_nonfinite_matches_jax(op, bad, where, cols):
     x = rng.standard_normal((n, 3) if op == "spmm" else n).astype(np.float32)
     x[(3 if where == "first_block" else 5 * bs + 2,) + cols] = bad
     y = plan(op, (csr,), schedule=Schedule("bsr", bs, 1.0),
-             shape_bucket=False, device="cpu").execute(x).numpy()
+             shape_bucket=False, device="cpu",
+             executor=TGuardedExecutor(nan_guard=False)).execute(x).numpy()
     jy = np.asarray(jplan(op, (jcsr,), schedule=JSchedule("bsr", bs, 1.0),
                           backend="jnp", shape_bucket=False,
                           executor=GuardedExecutor(nan_guard=False)
@@ -291,8 +293,7 @@ def test_plan_spmv_ell_nonfinite_x_matches_jax(bad, where):
     in a real column gives the JAX facade's NaN/Inf pattern: the port's
     plain path sums every slot, as the Pallas kernel does. Block-rows 0-11
     hold two real blocks and no pad slot, the last one real block and one
-    pad slot. (The JAX plan runs without its NaN guard, which would serve
-    a dense fallback.)"""
+    pad slot. (Both plans run without their NaN guards.)"""
     y = _assert_plan_ell_nonfinite_matches_jax("spmv", bad, where, ())
     assert np.isnan(y[(200 // 16) * 16:]).all() == (where == "first_block")
 
@@ -361,15 +362,15 @@ def test_plan_sell_nonfinite_x_matches_jax(op, bad, where):
     shape-bucketed SELL plan: 13 cells padded to 16, the pad cells (zero
     block, column 0) on the last sorted row. The JAX facade sums them into
     that row, so x[3] makes block-rows 0 and 12 non-finite; the port gives
-    the same pattern. (The JAX plan runs without its NaN guard, which would
-    serve a dense fallback.)"""
+    the same pattern. (Both plans run without their NaN guards.)"""
     n, bs = 208, 16
     csr = _diag_csr(n, bs, 0)
     x = _bad_x(n, op, bad, 3 if where == "first_block" else 5 * bs + 2, 1)
     st = SparseTensor.from_csr(csr, SELL_NF[0], shape_bucket=True,
                                device="cpu")
     assert st.arrays["cell_block"].shape[0] == 16 > int(csr.shape[0]) // bs
-    y = plan(op, (st,), device="cpu").execute(x).numpy()
+    y = plan(op, (st,), device="cpu",
+             executor=TGuardedExecutor(nan_guard=False)).execute(x).numpy()
     jy = np.asarray(jplan(op, (_jcsr(csr),), schedule=SELL_NF[1],
                           backend="jnp",
                           executor=GuardedExecutor(nan_guard=False)
@@ -377,7 +378,8 @@ def test_plan_sell_nonfinite_x_matches_jax(op, bad, where):
     _assert_nonfinite_equal(y, jy)
     assert _bad_block_rows(y, bs) == ({0, 12} if where == "first_block"
                                       else {5})
-    y2 = plan(op, (csr,), schedule=SELL_NF[0], device="cpu").execute(x)
+    y2 = plan(op, (csr,), schedule=SELL_NF[0], device="cpu",
+              executor=TGuardedExecutor(nan_guard=False)).execute(x)
     np.testing.assert_array_equal(y2.numpy(), y)
 
 
@@ -396,7 +398,9 @@ def test_plan_bucket_sell_nonfinite_x_matches_jax(op, bad, resident):
     kw = (dict(store=PreparedStore(), member_keys=[content_key(m)
                                                    for m in mats])
           if resident else {})
-    ys = plan_bucket(op, mats, SELL_NF[0], device="cpu", **kw).execute(xs)
+    ys = plan_bucket(op, mats, SELL_NF[0], device="cpu",
+                     executor=TGuardedExecutor(nan_guard=False),
+                     **kw).execute(xs)
     jys = jplan_bucket(op, [_jcsr(m) for m in mats], SELL_NF[1],
                        backend="jnp",
                        executor=GuardedExecutor(nan_guard=False)).execute(xs)
@@ -487,26 +491,61 @@ def _spmv_operand():
     return gen_zipf(64, seed=1)
 
 
+@pytest.fixture(scope="module")
+def small_service_tuner():
+    from repro_torch.core import H100_SXM, ScheduleTuner, corpus
+    return ScheduleTuner("spmv", H100_SXM).fit(
+        corpus(n_matrices=6, n_min=256, n_max=384, seed=0), max_mats=6)
+
+
 @pytest.mark.parametrize("entry", ["plan", "plan_bucket"])
-@pytest.mark.parametrize("keyword,queue_item", [
-    ("selector", "item 2"), ("executor", "item 1")])
-def test_plan_refuses_selector_and_executor(entry, keyword, queue_item):
-    """The reference consumes both; until the port's slices for them land,
-    a non-None value raises, naming the ROADMAP Queue A item."""
+@pytest.mark.parametrize("keyword", ["selector", "executor"])
+def test_plan_takes_selector_and_executor(entry, keyword,
+                                          small_service_tuner):
+    """Both entry points consume both keywords, as the reference's plan
+    does: an explicit GuardedExecutor carries the launch (the process
+    default's ledger stays empty), a SelectorService lends its store and
+    executor (and, to ``plan``, its schedule), and any other selector
+    raises the reference's TypeError."""
+    from repro_torch.selector import SelectorService
+    from repro_torch.sparse import default_executor, reset_resilience
+    reset_resilience()
     a = _spmv_operand()
     s = Schedule("bsr", 16, 1.0)
-    with pytest.raises(TypeError, match=f"Queue A {queue_item}"):
+    x = np.ones(a.shape[1], np.float32)
+
+    def build(**kw):
         if entry == "plan":
-            plan("spmv", (a,), schedule=s, device="cpu",
-                 **{keyword: object()})
-        else:
-            plan_bucket("spmv", [a, a], s, device="cpu",
-                        **{keyword: object()})
-    # None is the default and plans as before
-    p = (plan("spmv", (a,), schedule=s, device="cpu", **{keyword: None})
-         if entry == "plan" else
-         plan_bucket("spmv", [a, a], s, device="cpu", **{keyword: None}))
-    assert p.op == "spmv"
+            return plan("spmv", (a,), device="cpu",
+                        **({} if "selector" in kw else {"schedule": s}), **kw)
+        return plan_bucket("spmv", [a, a], s, device="cpu", **kw)
+
+    def run(p):
+        return p.execute(x) if entry == "plan" else p.execute([x, x])[0]
+
+    want = a.to_dense().astype(np.float64) @ x
+    if keyword == "selector":
+        with pytest.raises(TypeError, match="unsupported selector object; "
+                           "pass a SelectorService or a fitted "
+                           "ScheduleTuner"):
+            build(selector=object())
+        ex = TGuardedExecutor()
+        svc = SelectorService(small_service_tuner, executor=ex,
+                              device="cpu")
+        p = build(selector=svc)
+        assert len(svc.prepared_store) == 1
+        if entry == "plan":
+            assert p.source.startswith("selector-")
+            assert p.fingerprint_key and p.confidence is not None
+    else:
+        ex = TGuardedExecutor()
+        p = build(executor=ex)
+    np.testing.assert_allclose(run(p).numpy(), want, rtol=2e-5, atol=2e-5)
+    assert ex.telemetry() == default_executor().telemetry()
+    assert sum(ex.telemetry().values()) == 0
+    with pytest.raises(TypeError, match="unexpected keyword"):
+        build(executor=ex, selectr=None)
+    reset_resilience()
 
 
 @pytest.mark.parametrize("op", ["spmv", "spmm", "spgemm", "spadd",

@@ -1068,3 +1068,137 @@ def test_decode_loop_and_flash_plan_on_card(card):
     out = plan("flash_attention", (), causal=True).execute(q, k, v)
     assert launch_count("flash_attention") == 1
     _assert_near(out, FR.ref_attention(q, k, v))
+
+
+# ------------------------------------------------ guarded execution on card
+
+class _FirstLaunchFault:
+    """Installed as the fault injector: the first ``launch`` check fires,
+    every other check passes (a one-off fault on the card's rung)."""
+
+    def __init__(self):
+        from repro_torch.sparse.resilience import FaultInjector
+        self.inner = FaultInjector(0.0)
+        self.fired = self.inner.fired
+        self.recovered = self.inner.recovered
+
+    def maybe_raise(self, site, detail=""):
+        from repro_torch.sparse.resilience import InjectedFault
+        self.inner.checks[site] += 1
+        if site == "launch" and not self.fired[site]:
+            self.fired[site] += 1
+            raise InjectedFault(site, detail)
+
+    def fire(self, site, detail=""):
+        self.inner.checks[site] += 1
+        return False
+
+
+@pytest.mark.parametrize("fault", ["launch", "nan", "prep"])
+def test_guard_raises_on_card_and_keeps_the_kernel(card, fault):
+    """On the card the guard's chain is the kernel alone: an injected launch
+    fault, a NaN output or a failing build is counted, the combo
+    quarantined where a launch failed, and the error raised; no answer
+    comes from the plain version or the host. The next launch of the
+    quarantined combo runs the kernel again (a counted override) and gives
+    the oracle's answer."""
+    from repro_torch.sparse import (FaultInjector, GuardedExecutor,
+                                    InjectedFault, NonFiniteOutput,
+                                    install_injector, reset_resilience)
+    reset_resilience()
+    m = gen_zipf(700, seed=3)
+    s = Schedule("bsr", 64, 1.0)
+    x = np.random.default_rng(2).standard_normal(700).astype(np.float32)
+    ex = GuardedExecutor()
+    before = K.LAUNCHES["bsr_spmv_ell"]
+    try:
+        if fault == "prep":
+            install_injector(FaultInjector(1.0, seed=0, sites=("prep",)))
+            with pytest.raises(InjectedFault):
+                plan("spmv", (m,), schedule=s, executor=ex)
+            tel = ex.telemetry()
+            assert tel["build_retries"] == ex.max_build_retries
+            assert tel["dense_builds"] == 0 and len(ex.quarantine) == 0
+            assert K.LAUNCHES["bsr_spmv_ell"] == before
+            return
+        p = plan("spmv", (m,), schedule=s, executor=ex)
+        assert p.backend == "cuda"
+        if fault == "launch":
+            install_injector(_FirstLaunchFault())
+            with pytest.raises(InjectedFault):
+                p.execute(x)
+            assert K.LAUNCHES["bsr_spmv_ell"] == before  # the fault came first
+        else:
+            xbad = np.full_like(x, np.nan)
+            with pytest.raises(NonFiniteOutput):
+                p.execute(xbad)
+            assert K.LAUNCHES["bsr_spmv_ell"] == before + 1
+            assert ex.nan_trips == 1
+        tel = ex.telemetry()
+        assert tel["exhausted"] == 1 and tel["fallbacks"] == 0
+        assert tel["dense_served"] == 0 and ex.fallbacks["spmv"] == 0
+        assert sum(tel.values()) == 1 + (fault == "nan")
+        assert p.backend == "cuda"
+        assert ex.quarantine.blocked("spmv", "cuda", s)
+        n = K.LAUNCHES["bsr_spmv_ell"]
+        y = p.execute(x)
+        assert K.LAUNCHES["bsr_spmv_ell"] == n + 1 and p.backend == "cuda"
+        assert ex.quarantine_overrides == 1 and ex.quarantine_skips == 0
+        assert y.device.type == "cuda"
+        np.testing.assert_allclose(y.cpu().numpy(), spmv_oracle(m, x),
+                                   rtol=1e-4, atol=1e-4)
+    finally:
+        reset_resilience()
+
+
+@pytest.mark.parametrize("value", [None, np.nan, np.inf, -np.inf, -0.0])
+def test_output_finite_on_card_reads_only_the_verdict(card, value):
+    """The check reduces on the card: no call copies more than one element
+    to the host, the temporaries stay far below the output's size, and the
+    verdict is numpy's."""
+    from torch.overrides import TorchFunctionMode
+    from repro_torch.sparse import output_finite
+    t = torch.randn(4099, 8192, device=card)
+    if value is not None:
+        t[4098, 8191] = float(value)
+    moves = []
+    copies = {"cpu", "to", "numpy", "tolist", "item", "__bool__",
+              "__array__", "clone"}
+
+    class Spy(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            name = getattr(func, "__name__", "")
+            if name in copies and args and isinstance(args[0], torch.Tensor):
+                moves.append((name, args[0].numel()))
+            return func(*args, **(kwargs or {}))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with Spy():
+        ok = output_finite(t)
+    peak = torch.cuda.max_memory_allocated() - base
+    assert ok == bool(np.isfinite(t.cpu().numpy()).all())
+    assert moves and max(n for _, n in moves) == 1, moves
+    assert peak < t.numel() * t.element_size() // 64
+
+
+def test_guarded_bucket_bs256_ell_counts_no_fall(card):
+    """The selector's pick at full width is bs 256 ELL: its stacked bucket
+    launch runs under the guard with the NaN check on and falls nowhere."""
+    from repro_torch.sparse import GuardedExecutor
+    mats = [gen_zipf(n, seed=n) for n in (1500, 1200, 900)]
+    s = Schedule("bsr", 256, 1.0)
+    rng = np.random.default_rng(4)
+    xs = [rng.standard_normal(m.shape[1]).astype(np.float32) for m in mats]
+    ex = GuardedExecutor(nan_guard=True)
+    before = K.LAUNCHES["bsr_spmv_ell"]
+    reset_counters()
+    p = plan_bucket("spmv", mats, s, store=PreparedStore(), executor=ex)
+    ys = p.execute(xs)
+    assert p.backend == "cuda" and launch_count("spmv") == 1
+    assert K.LAUNCHES["bsr_spmv_ell"] == before + 1
+    assert sum(ex.telemetry().values()) == 0 and len(ex.quarantine) == 0
+    for y, m, x in zip(ys, mats, xs):
+        np.testing.assert_allclose(y.cpu().numpy(), spmv_oracle(m, x),
+                                   rtol=1e-4, atol=1e-4)

@@ -38,6 +38,7 @@ from repro_torch.kernels.moe_gmm import (live_row_ends, moe_gmm,
 from repro_torch.kernels.moe_gmm.kernel import computed_rows
 from repro_torch.selector import ScheduleCache, routing_fingerprint
 from repro_torch.serving import decode_moe_ticks
+from repro_torch.sparse import GuardedExecutor as TGuardedExecutor
 from repro_torch.sparse import (PreparedStore, get_op, launch_count,
                                 list_ops, moe_tile_schedule, plan,
                                 reset_counters)
@@ -134,7 +135,7 @@ def test_schedule_cache_lru_collision_and_context_like_jax():
            for h in HISTOGRAMS[:3]]
     sched = Schedule("bsr", 64, 1.0)
     for (fp, jfp) in fps:
-        caches[0].put(fp, sched)
+        caches[0].put(fp, sched, "rule")
         caches[1].put(jfp, sched, "rule")
     for c, i in ((caches[0], 0), (caches[1], 1)):
         assert c.get(fps[0][i]) is None          # evicted (LRU, capacity 2)
@@ -150,9 +151,23 @@ def test_schedule_cache_lru_collision_and_context_like_jax():
     assert tel["context_misses"] == 1 and tel["hits"] == 1
 
 
-def test_schedule_cache_persistence_left_out():
-    with pytest.raises(NotImplementedError, match="guarded-execution"):
-        ScheduleCache(path="cache.json")
+def test_schedule_cache_persistence_round_trip(tmp_path):
+    """The decode cache persists: flushed entries reload in LRU order
+    under their context, each checked by its crc32, and serve hits."""
+    path = str(tmp_path / "moe_cache.json")
+    cache = ScheduleCache(path=path, capacity=4)
+    p = H100_SXM
+    scheds = [moe_tile_schedule(np.asarray(h, np.float64), 512, p,
+                                cache=cache) for h in HISTOGRAMS]
+    assert cache.flush()
+    again = ScheduleCache(path=path, capacity=4)
+    assert len(again) == len(cache) == min(len(HISTOGRAMS), 4)
+    assert again.telemetry()["corrupt_entries"] == 0
+    again.context = "moe_gmm"
+    for h, s in list(zip(HISTOGRAMS, scheds))[-len(again):]:
+        assert moe_tile_schedule(np.asarray(h, np.float64), 512, p,
+                                 cache=again) == s
+    assert again.telemetry()["hits"] == len(again)
 
 
 # ------------------------------------------------------------------ moe_gmm
@@ -291,9 +306,8 @@ def test_pad_rows_get_the_zero_row_product(backend, tm):
     """The rule the CUDA kernel rests on: with a NaN and +-Inf in w, every
     pad row of an expert's tiles is that expert's closed-form zero-row
     product (NaN in the non-finite columns, zero elsewhere), in the JAX
-    facade and in the port's plain path alike; an empty expert's too. The
-    facade's NaN guard is off, so the backend asked for is the one that
-    runs."""
+    facade and in the port's plain path alike; an empty expert's too. Both
+    NaN guards are off, so the backend asked for is the one that runs."""
     t, k, n, e = 90, 32, 48, 4
     tokens, eot, w = _routed(t, k, n, e, tm, seed=11, drop_last=True)
     w[0, 3, 5] = np.nan
@@ -304,7 +318,8 @@ def test_pad_rows_get_the_zero_row_product(backend, tm):
         "moe_gmm", (te,), tile_m=tm, tile_n=16, tile_k=16, backend=backend,
         executor=GuardedExecutor(nan_guard=False)).execute(x, w))
     got = plan("moe_gmm", (te,), tile_m=tm, tile_n=16, tile_k=16,
-               device=CPU).execute(x, w).numpy()
+               device=CPU, executor=TGuardedExecutor(nan_guard=False)
+               ).execute(x, w).numpy()
     tile_of_row = np.repeat(te, tm)
     pad = inv < 0
     assert pad[tile_of_row == 3].all()

@@ -10,7 +10,8 @@ git-ignored directory such as ``build/``). Runs the two trees'
 each building its kernels into its own ``build/``. Every run's standard
 output and error go to ``build/ab/<i>_<arm>.out`` and ``.err``
 (git-ignored). Prints the card line, then one JSON line per kernel x input
-and per plan with the run's times in order, then one line with each run's
+and per plan with the run's times in order (a plan's time without the
+guard's NaN check where its line gives one), then one line with each run's
 exit code and seconds. Exits nonzero when any run did.
 """
 from __future__ import annotations
@@ -66,8 +67,11 @@ def main() -> int:
             elif "plan" in r:
                 key = ("plan", r["plan"], " ".join(
                     [r["input"]] + ([r["layout"]] if "layout" in r else [])))
-                val = {"ms": r["execute_ms"] if "execute_ms" in r
-                       else r["ms"]}
+                # the time without the guard's NaN check where the line
+                # has it, so a tree from before the guard compares alike
+                val = {"ms": next(r[k] for k in (
+                    "execute_ms_unchecked", "ms_unchecked", "execute_ms",
+                    "ms") if k in r)}
             else:
                 continue
             rows.setdefault(key, {})[f"{i}_{arm}"] = val
