@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: drives the plan/execute paths of
 spmv/spmm, spgemm and spadd on one NVIDIA GPU at full matrix size, the
-tree-driven ``SelectorService`` on SpMV and SpMM requests, and the MoE
-decode loop, an MoE prefill and prefill attention at mixtral-8x22b width,
+tree-driven ``SelectorService`` on SpMV and SpMM requests, the
+continuous-batching ``ServingEngine`` under Zipf trace replays (with its
+journal, checkpoints and crash restarts), and the MoE decode loop, an MoE prefill and prefill attention at mixtral-8x22b width,
 all under the guard (``GuardedExecutor``), and holds every kernel against
 its plain PyTorch version (and the sparse ones against a float64 CSR
 oracle).
 
-    python3 chip_smoke.py            # needs one CUDA card; ~5-7 min
+    python3 chip_smoke.py            # needs one CUDA card; ~7-8 min
 
 Phases (any failure exits nonzero; nothing is caught and passed over):
   1. build the five CUDA sources of ``src/repro_torch/csrc`` (one nvcc per
@@ -46,6 +47,39 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      its store with no host prep; then the tree's picks for
      ``gen_spatial(131072)`` and ``gen_spatial(524288)`` with the block
      bytes they imply (from block counts, ``"served": false``);
+  2c. engine phase, ``{"engine": ...}`` lines: ``ScheduleTuner("spmv",
+     H100_SXM)`` fit on the serve CLI's corpus; ``ServingEngine``s over
+     ``SelectorService(confidence_threshold=0, device="cuda")`` (the tree
+     serves: the verify sweep would build every candidate's BSR on the
+     host, which cannot run at this scale) and ONE ``PreparedStore`` (48
+     GiB budget) shared by every engine of the phase, so host prep is paid
+     once; tenants ``tenant_population(8, 16384..65536, seed=500)`` (the
+     serve CLI's population seed; each tenant's pick, confidence, block
+     bytes, first fingerprint and ``content_key`` time printed) with RHS
+     ``tenant_rhs(seed=0)``. Each replay warms a fresh engine (drains of
+     1, 2, 4 and 8 per tenant, then ``reset_metrics``) and replays
+     ``generate_trace(256, qps, 8, a=1.1, seed=0)``: ``sub`` (50 qps) and
+     ``sat`` (800 qps) at ``slot_max=8, slo_ms=25``, ``nobatch`` (800 qps,
+     ``batching=False``), ``overload`` (800 qps, ``deadline_ms=40``,
+     ``queue_max=128``, the shared store), ``durable`` (50 qps, a
+     ``RequestJournal`` and an ``EngineCheckpoint`` under
+     ``build/engine_smoke``, ``checkpoint_every=16``); then ``crash``: 128
+     requests at 50 qps under ``FaultInjector(0.05, sites=("crash",),
+     seed=8)`` and ``run_with_restarts(max_restarts=30)``, then
+     ``reconcile`` of its journal. One line per replay holds its
+     ``report()`` scorecard, its launches and its worst output error;
+     ``sat`` adds its host split (tick time, timed here, against the
+     engine's ``drain``, ``launch`` and ``select`` spans). Checks: the
+     ledger identities once dry; every executed output within
+     ``1e-4 * max|ref|`` of the float64 oracle of the matrix its schedule
+     serves (a q < 1 ELL pick drops the blocks past its row cap); every
+     completed request executed once; ``multi_request_drains > 0`` at
+     ``sat``; ``overload`` sheds or rejects; ``crash`` restarts with the
+     journal's ``open == 0``, no duplicate outcome and every fired fault
+     recovered; ``bsr_spmv_ell`` and ``bsr_spmm_ell`` launched by the
+     replays' drains (counts zeroed before each replay, read after). Then
+     the picked kernels' rows (as in phase 7) on the hottest large
+     tenant's served operand, from the shared store;
   3. spgemm main path: ``plan("spgemm", (A, A))`` with ``layout="ell"``
      (padded pairs) and ``"sell"`` (flat cells) on ``gen_spatial(65536)``
      (bs=32, C 9.55 GB) and ``gen_zipf(8192)`` (bs=128), then
@@ -172,6 +206,24 @@ SELECTOR_CORPUS = {"n_matrices": 18, "n_min": 256, "n_max": 768, "seed": 0}
 # bucket's stack), so 65536 (11.1 GB of blocks) is served and 131072 and
 # 524288 are only picked
 SERVE_N = 65536
+# the engine phase's tenants: the serve CLI's population (seed + 500) at
+# 16384-65536 rows, cut from SuiteSparse's 10^5-10^7; the tree picks bs=256
+# ELL for all eight, ~19 GB of blocks (at 32768-131072, ~72 GB)
+ENGINE_POP = {"n_tenants": 8, "n_min": 16384, "n_max": 65536, "seed": 500}
+ENGINE_STORE_BYTES = 48 << 30
+ENGINE_REQUESTS = 256
+ENGINE_KW = {"slot_max": 8, "slo_ms": 25.0}
+ENGINE_REPLAYS = (                 # (label, offered qps, engine settings)
+    ("sub", 50.0, ENGINE_KW),
+    ("sat", 800.0, ENGINE_KW),
+    ("nobatch", 800.0, dict(ENGINE_KW, batching=False)),
+    ("overload", 800.0, dict(ENGINE_KW, deadline_ms=40.0, queue_max=128)),
+    ("durable", 50.0, dict(ENGINE_KW, checkpoint_every=16)),
+)
+ENGINE_CRASH = {"qps": 50.0, "n_requests": 128, "rate": 0.05, "seed": 8,
+                "max_restarts": 30, "checkpoint_every": 16,
+                "backoff_base_s": 1e-5}
+ENGINE_DIR = Path(__file__).resolve().parent / "build" / "engine_smoke"
 
 
 def log(msg: str) -> None:
@@ -731,6 +783,335 @@ def run_selector(device: str, serve_n: int, big, members, seed: int,
                 **(block_bytes(A, pred.schedule.block_size)
                    if pred.schedule.backend == "bsr" else {})}})
     return rows
+
+
+# --------------------------------------------------------------- engine
+
+def engine_watch(engine, outs: list) -> None:
+    """Collect each drained request's (matrix, decision) from the engine's
+    service: the engine keeps no outputs. The outputs are checked after
+    the replay, so the check's host time stays out of the latencies."""
+    inner = engine.service.drain_bucket
+
+    def drain_bucket(members, backend="auto"):
+        decs = inner(members, backend=backend)
+        outs.extend((req.csr, dec) for (req, _), dec in zip(members, decs))
+        return decs
+
+    engine.service.drain_bucket = drain_bucket
+
+
+def served_matrix(A, schedule):
+    """The matrix a schedule serves: A itself, or for an ELL schedule with
+    ``ell_quantile < 1`` A without the blocks past each block row's cap
+    (``ell_block_cap``: the first ``cap`` blocks of a block row, in column
+    order, are kept, as ``ELLBSR.from_bsr`` keeps them), so its float64
+    oracle is what the schedule computes."""
+    from repro_torch.core import CSR, ell_block_cap
+    if schedule.layout != "ell" or schedule.ell_quantile >= 1.0:
+        return A
+    bs = schedule.block_size
+    n_bc = -(-A.shape[1] // bs)
+    rows = np.repeat(np.arange(A.shape[0], dtype=np.int64),
+                     A.row_lengths())
+    key = (rows // bs) * n_bc + A.col_idxs.astype(np.int64) // bs
+    uniq, inv = np.unique(key, return_inverse=True)
+    brow = uniq // n_bc
+    first = np.searchsorted(brow, brow)          # each block row's first
+    cap = ell_block_cap(np.bincount(brow), schedule.ell_quantile)
+    keep = (np.arange(uniq.size) - first < cap)[inv]
+    return CSR.from_coo(rows[keep], A.col_idxs[keep], A.nnz_vals[keep],
+                        A.shape)
+
+
+def engine_outputs(label: str, outs: list, refs, tenant_of) -> float:
+    """Every executed output against its tenant's float64 oracle; returns
+    the largest error relative to max|ref|."""
+    worst = 0.0
+    for A, dec in outs:
+        ref = refs[tenant_of[id(A)]]
+        check(dec.y is not None and dec.y.shape == ref.shape
+              and np.isfinite(dec.y).all(), f"engine {label}: {dec.name} "
+              "gave a finite output of its tenant's shape")
+        worst = max(worst, rel_err(dec.y, ref))
+    check(worst <= TOL, f"engine {label}: outputs within {TOL} of max|ref| "
+          f"(worst {worst:.3e})")
+    return worst
+
+
+def engine_split(ticks: list, tracer, rep: dict, hash_ms: float) -> dict:
+    """The ``sat`` replay's host time split from its tick times (timed
+    here) and the engine's trace spans: admission = tick time minus the
+    ``drain`` spans; drain host work = ``drain`` minus ``launch`` spans;
+    launch = the ``launch`` spans (x upload, kernel, NaN check, sync)."""
+    spans = {}
+    for ev in tracer.events():
+        spans[ev["type"]] = spans.get(ev["type"], 0.0) + ev["dur_us"] / 1e3
+    tick_ms = sum(ticks) * 1e3
+    return {"ticks": len(ticks), "tick_ms": tick_ms,
+            "admission_ms": tick_ms - spans["drain"],
+            "select_ms": spans.get("select", 0.0),
+            "content_key_ms_est": hash_ms,
+            "drain_ms": spans["drain"],
+            "drain_host_ms": spans["drain"] - spans["launch"],
+            "launch_ms": spans["launch"],
+            "prep_ms": spans.get("prep", 0.0),
+            "replay_ms": rep["elapsed_s"] * 1e3,
+            "outside_ticks_ms": rep["elapsed_s"] * 1e3 - tick_ms,
+            "service_rate_qps": rep["completed"] / max(sum(ticks), 1e-9)}
+
+
+def run_engine(device: str, pop: dict, timer) -> tuple:
+    """The engine phase: ``ServingEngine`` over a tree-served
+    ``SelectorService`` (``confidence_threshold=0``: the verify sweep would
+    build every candidate's BSR on the host, which cannot run at this
+    scale), one ``PreparedStore`` shared by every engine of the phase (the
+    host prep is paid once), the population ``tenant_population(**pop)``
+    and its RHS ``tenant_rhs(seed=0)``. Each replay of ``ENGINE_REPLAYS``
+    warms a fresh engine (drains of 1, 2, 4 and 8 per tenant, then
+    ``reset_metrics``) and replays ``generate_trace(256, qps, a=1.1,
+    seed=0)``; then the crash replay runs under ``run_with_restarts``.
+    Launch counts are zeroed just before each replay and read just after.
+    Returns the kernel rows on the hottest large tenant's served operand
+    and the replays' launches."""
+    import torch
+    from repro_torch.core import (H100_SXM, ScheduleTuner, corpus,
+                                  spmm_oracle, spmv_oracle)
+    from repro_torch.kernels.bsr_spmv import kernel as K
+    from repro_torch.obs import Tracer, install_tracer
+    from repro_torch.selector import (ScheduleCache, SchedulePredictor,
+                                      SelectorService, fingerprint)
+    from repro_torch.serving import (EngineCheckpoint, RequestJournal,
+                                     ServingEngine, generate_trace,
+                                     reconcile, replay, run_with_restarts,
+                                     tenant_population, tenant_rhs)
+    from repro_torch.sparse import (FaultInjector, PreparedStore,
+                                    content_key, install_injector, plan)
+
+    t0 = time.monotonic()
+    tuner = ScheduleTuner("spmv", H100_SXM).fit(
+        corpus(**SELECTOR_CORPUS), max_mats=SELECTOR_CORPUS["n_matrices"])
+    fit_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    population = tenant_population(pop["n_tenants"], n_min=pop["n_min"],
+                                   n_max=pop["n_max"], seed=pop["seed"])
+    xs = tenant_rhs(population, seed=0)
+    tenant_of = {id(A): t for t, (_, A) in enumerate(population)}
+    emit({"engine": {"population": pop, "fit_s": fit_s,
+                     "population_s": time.monotonic() - t0,
+                     "corpus": SELECTOR_CORPUS, "platform": "h100_sxm"}})
+    predictor = SchedulePredictor(tuner)
+    picks, ck_ms, tenant_bytes = [], [], []
+    for name, A in population:
+        t0 = time.monotonic()
+        fp = fingerprint(A)
+        fp_s = time.monotonic() - t0
+        hashes = []
+        for _ in range(3):
+            t0 = time.monotonic()
+            content_key(A)
+            hashes.append((time.monotonic() - t0) * 1e3)
+        ck_ms.append(statistics.median(hashes))
+        pred = predictor.predict(fp)
+        picks.append(pred.schedule)
+        nbytes = (block_bytes(A, pred.schedule.block_size)
+                  if pred.schedule.backend == "bsr" else {})
+        tenant_bytes.append(nbytes.get("block_bytes", 0))
+        emit({"engine": {"tenant": name, "rows": A.shape[0], "nnz": A.nnz,
+                         "schedule": describe(pred.schedule),
+                         "confidence": pred.confidence,
+                         "modeled_ms": pred.tree_time_s * 1e3,
+                         "fingerprint_s": fp_s,
+                         "content_key_ms": ck_ms[-1], **nbytes}})
+    check(all(s.backend == "bsr" for s in picks),
+          "engine: every tenant takes a BSR schedule (a kernel serves it)")
+    # each output's oracle: the float64 product of the matrix its schedule
+    # serves (a q < 1 ELL pick truncates rows past its block cap)
+    served = [served_matrix(A, s) for (_, A), s in zip(population, picks)]
+    refs = [spmv_oracle(B, x) for B, x in zip(served, xs)]
+    emit({"engine": {"truncated_nnz": {
+        name: A.nnz - B.nnz for (name, A), B in zip(population, served)}}})
+
+    store = PreparedStore(byte_budget=ENGINE_STORE_BYTES)
+    shutil.rmtree(ENGINE_DIR, ignore_errors=True)
+
+    def make(outs, **kw):
+        svc = SelectorService(tuner, cache=ScheduleCache(),
+                              confidence_threshold=0.0, prepared_store=store,
+                              device=device)
+        engine = ServingEngine(svc, **kw)
+        engine_watch(engine, outs)
+        return engine
+
+    def warm(engine) -> float:
+        t0 = time.monotonic()
+        for reps in (1, 2, 4, 8):
+            for t, (name, A) in enumerate(population):
+                for j in range(reps):
+                    engine.submit(f"warm{reps}.{j}:{name}", A, xs[t],
+                                  tenant=t)
+            engine.drain_all()
+        engine.reset_metrics()
+        return time.monotonic() - t0
+
+    launches, reports = {}, {}
+
+    def read_launches(total: dict) -> dict:
+        """This replay's launches (counted since the last reset), added
+        into ``total``."""
+        got = {k: v for k, v in K.LAUNCHES.items() if v}
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        return got
+
+    n = len(population)
+    for label, qps, kw in ENGINE_REPLAYS:
+        outs = []
+        settings = dict(kw)
+        if label == "durable":
+            d = ENGINE_DIR / label
+            kw = dict(kw, journal=RequestJournal(str(d / "journal")),
+                      checkpointer=EngineCheckpoint(str(d)))
+        engine = make(outs, **kw)
+        warm_s = warm(engine)
+        outs.clear()
+        trace = generate_trace(ENGINE_REQUESTS, qps, n, a=1.1, seed=0)
+        tracer, ticks = None, []
+        if label == "sat":
+            inner_tick = engine.tick
+
+            def timed_tick(inner_tick=inner_tick):
+                t0 = time.perf_counter()
+                done = inner_tick()
+                ticks.append(time.perf_counter() - t0)
+                return done
+
+            engine.tick = timed_tick
+            tracer = install_tracer(Tracer())
+        K.reset_launch_counts()
+        try:
+            rep = replay(engine, trace, population, rhs_seed=0)
+        finally:
+            if tracer is not None:
+                install_tracer(None)
+        got = read_launches(launches)
+        extra = {}
+        if label == "durable":
+            engine.close()
+            led = reconcile(RequestJournal(str(ENGINE_DIR / label
+                                               / "journal")).scan())
+            check(led["open"] == 0 and led["duplicate_outcomes"] == 0,
+                  f"engine durable: journal closes ({led})")
+            extra["journal_ledger"] = led
+        if tracer is not None:
+            hash_ms = sum(ck_ms[tenant_of[id(A)]] for A, _ in outs)
+            extra["host_split"] = engine_split(ticks, tracer, rep, hash_ms)
+        check(rep["admitted"] == rep["completed"] + rep["shed"]
+              and rep["submitted"] == rep["admitted"] + rep["rejected"]
+              and rep["submitted"] == ENGINE_REQUESTS
+              and rep["queue_depth"] == 0 and rep["slot_backlog"] == 0,
+              f"engine {label}: ledger identities once dry ({rep})")
+        check(len(outs) + rep["drain_dedups"] == rep["completed"],
+              f"engine {label}: every completed request executed once")
+        worst = engine_outputs(label, outs, refs, tenant_of)
+        emit({"engine": {"replay": label, "qps": qps, "settings": settings,
+                         "warm_s": warm_s, "launches": got,
+                         "max_rel_err": worst, **extra, **rep}})
+        log(f"engine {label}: offered {rep['offered_qps']:.1f} qps, "
+            f"achieved {rep['achieved_qps']:.1f} qps, p50/p99 "
+            f"{rep['latency_p50_ms']:.2f}/{rep['latency_p99_ms']:.2f} ms, "
+            f"mean drain {rep['mean_drain_size']:.2f}, shed "
+            f"{rep['shed']:.0f}, rejected {rep['rejected']:.0f}")
+        reports[label] = rep
+        del engine, outs
+    check(reports["sat"]["multi_request_drains"] > 0,
+          "engine sat: content-pure slots drained as multi-RHS launches")
+    check(reports["overload"]["shed"] + reports["overload"]["rejected"] > 0,
+          "engine overload: sheds or rejects")
+
+    # crash replay: killed at seeded crash points, restarted under the
+    # supervisor from the newest checkpoint and the journal's open suffix
+    cfg = ENGINE_CRASH
+    d = ENGINE_DIR / "crash"
+    outs = []
+
+    def build():
+        return make(outs, slot_max=8, slo_ms=25.0,
+                    journal=RequestJournal(str(d / "journal")),
+                    checkpointer=EngineCheckpoint(str(d)),
+                    checkpoint_every=cfg["checkpoint_every"])
+
+    def resolve(rec):
+        t = int(rec.get("tenant", -1))
+        return (population[t][1], xs[t]) if 0 <= t < n else None
+
+    trace = generate_trace(cfg["n_requests"], cfg["qps"], n, a=1.1, seed=0)
+    K.reset_launch_counts()
+    inj = install_injector(FaultInjector(cfg["rate"], sites=("crash",),
+                                         seed=cfg["seed"]))
+    t0 = time.monotonic()
+    try:
+        summary = run_with_restarts(
+            build, lambda engine, attempt: replay(engine, trace, population,
+                                                  rhs_seed=0),
+            resolve=resolve, max_restarts=cfg["max_restarts"],
+            backoff_base_s=cfg["backoff_base_s"])
+    finally:
+        install_injector(None)
+    crash_s = time.monotonic() - t0
+    got = read_launches(launches)
+    rep = summary.pop("result")
+    led = reconcile(RequestJournal(str(d / "journal")).scan())
+    faults = inj.telemetry()
+    check(summary["restarts"] >= 1 and led["open"] == 0
+          and led["duplicate_outcomes"] == 0
+          and led["submitted"] == cfg["n_requests"]
+          and faults["fault_fired"] == faults["fault_recovered"],
+          f"engine crash: restarted, journal closes exactly once "
+          f"({summary}, {led}, {faults})")
+    check(rep["admitted"] == rep["completed"] + rep["shed"],
+          f"engine crash: last incarnation's ledger ({rep})")
+    check(len(outs) == led["completed"],
+          f"engine crash: {len(outs)} executions for {led['completed']} "
+          "completed requests")
+    worst = engine_outputs("crash", outs, refs, tenant_of)
+    emit({"engine": {"replay": "crash", "qps": cfg["qps"], "settings": cfg,
+                     "replay_s": crash_s, "launches": got,
+                     "max_rel_err": worst, "journal_ledger": led,
+                     "faults": faults,
+                     **{f"recovery_{k}": v for k, v in summary.items()},
+                     **rep}})
+    log(f"engine crash: {summary['restarts']:.0f} restarts, "
+        f"{summary['replayed']:.0f} replayed, mttr "
+        f"{summary['mttr_ms']:.1f} ms, {crash_s:.1f}s")
+    emit({"engine": {"launches": launches}})
+    for name in ("bsr_spmv_ell", "bsr_spmm_ell"):
+        check(launches.get(name, 0) > 0,
+              f"engine: {name} launched by the engine's drains")
+
+    # the picked kernels' rows on the hottest large tenant's (the hottest
+    # with an eighth of the largest's block bytes) served operand, from
+    # the shared store (a miss would be a second host prep)
+    t = next(i for i, nb in enumerate(tenant_bytes)
+             if nb >= max(tenant_bytes) / 8)
+    name, A = population[t]
+    misses = store.misses
+    p = plan("spmv", (A,), schedule=picks[t], store=store, device=device,
+             operand_key=content_key(A))
+    check(store.misses == misses, "engine: the kernel rows run on the "
+          "served operand")
+    X = np.random.default_rng(5).standard_normal(
+        (A.shape[1], K_RHS)).astype(np.float32)
+    csr = torch_csr(A, device)
+    rows = {}
+    for multi, xh, ref in ((False, xs[t], refs[t]),
+                           (True, X, spmm_oracle(served[t], X))):
+        rec = matvec_row(p.operands[0], multi,
+                         f"engine {name} bs{picks[t].block_size}", xh, ref,
+                         csr, timer, device)
+        rows.setdefault(rec["kernel"], []).append(rec)
+    del p, csr, store
+    return rows, launches
 
 
 # ------------------------------------------------------ spgemm / spadd
@@ -1356,7 +1737,8 @@ def run_flash(device: str, dims: dict, seed: int, timer) -> tuple:
 
 
 def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, gemm_n: int,
-        serve_n: int, unserved_ns, seed: int, timer) -> dict:
+        serve_n: int, unserved_ns, engine_pop: dict, seed: int,
+        timer) -> dict:
     """All phases on ``device``, each followed by its guard line; returns
     the ``kernels`` record."""
     from repro_torch.core import gen_spatial, gen_zipf
@@ -1385,6 +1767,14 @@ def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, gemm_n: int,
         results[name] += recs
     memory_line("selector", device)
     guard_line("selector")
+
+    r, l = run_engine(device, engine_pop, timer)
+    for name, recs in r.items():
+        results[name] += recs
+    for name, n in l.items():
+        launches[name] += n
+    memory_line("engine", device)
+    guard_line("engine")
 
     # each with the library call that computes A @ A on it
     gemm_inputs = [{"name": f"spatial_{gemm_n}_bs32",
@@ -1505,8 +1895,8 @@ def main() -> int:
     t0 = time.monotonic()
     record = run("cuda", spatial_n=524288, zipf_n=8192,
                  bucket_ns=(8192, 7168, 6144, 5120), gemm_n=65536,
-                 serve_n=SERVE_N, unserved_ns=(131072, 524288), seed=0,
-                 timer=cuda_timer)
+                 serve_n=SERVE_N, unserved_ns=(131072, 524288),
+                 engine_pop=ENGINE_POP, seed=0, timer=cuda_timer)
     log(f"all phases {time.monotonic() - t0:.1f}s")
     print(json.dumps(record), flush=True)
     print(card, flush=True)

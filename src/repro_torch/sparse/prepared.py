@@ -180,6 +180,27 @@ class PreparedStore:
             self.put(key, value)
         return value
 
+    def resident(self, content_key: str) -> bool:
+        """True when any cached entry's key references this exact-bytes
+        content key — i.e. some prepared product of that matrix (a
+        container, a staged symbolic product, a stacked bucket array) is
+        device-resident right now. The serving engine's slot-based
+        admission (DESIGN.md §13) keys slots on this: a tenant whose
+        operands are resident drains without paying host prep, so resident
+        slots are preferred drain targets. O(entries × key width) per
+        probe, both bounded by the byte budget."""
+
+        def _walk(t: Tuple) -> bool:
+            for el in t:
+                if isinstance(el, tuple):
+                    if _walk(el):
+                        return True
+                elif el == content_key:
+                    return True
+            return False
+
+        return any(_walk(k) for k in self._entries)
+
     def clear(self) -> None:
         self._entries.clear()
         self.bytes_in_use = 0

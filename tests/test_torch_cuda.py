@@ -3,8 +3,9 @@ PyTorch version on the same inputs, over the block sizes the kernels take
 (8 to 256, powers of two or not), one member and a stacked bucket, and the
 plan paths (spmv, spgemm, spadd) end to end against float64 references;
 the grouped GEMM over tile_m 32-256 and the attention kernel over head
-dims 32-256, float32 and bfloat16, with ragged edges, and the MoE decode
-loop and flash plan on the card.
+dims 32-256, float32 and bfloat16, with ragged edges, the MoE decode
+loop and flash plan on the card, and the ServingEngine on the card (its
+drains against a CPU engine's, its serving thread).
 
 Run on a machine with an NVIDIA GPU and nvcc:
 
@@ -14,6 +15,8 @@ Without a card every test here skips (the kernels have no CPU mode). This
 file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1202,3 +1205,112 @@ def test_guarded_bucket_bs256_ell_counts_no_fall(card):
     for y, m, x in zip(ys, mats, xs):
         np.testing.assert_allclose(y.cpu().numpy(), spmv_oracle(m, x),
                                    rtol=1e-4, atol=1e-4)
+
+
+def _engine_stream(engine, pop, xs, clock, trace):
+    """Warm every tenant, then offer ``trace`` on the fake clock with a
+    tick after every third submit, then run dry."""
+    for t, (name, A) in enumerate(pop):
+        engine.submit(f"warm:{name}", A, xs[t], tenant=t, rid=f"warm{t}")
+    engine.drain_all()
+    t0 = clock[0]
+    for i, tr in enumerate(trace):
+        clock[0] = t0 + tr.t_s
+        engine.submit(tr.name, pop[tr.tenant][1], xs[tr.tenant],
+                      tenant=tr.tenant, rid=tr.name)
+        if i % 3 == 2:
+            engine.tick()
+    engine.drain_all()
+
+
+def test_engine_on_card_matches_the_cpu_engine(card):
+    """One fake-clock submit stream through a ServingEngine on the card
+    and one on the CPU: the same drains and ledger, every drained output
+    equal to the CPU engine's within 2e-5, and the drains launched as the
+    ELL kernels (alone for one request, the multi-RHS kernel for a
+    content-pure slot of several)."""
+    from repro_torch.core import H100_SXM, ScheduleTuner, corpus
+    from repro_torch.selector import ScheduleCache, SelectorService
+    from repro_torch.serving import (ServingEngine, generate_trace,
+                                     tenant_population, tenant_rhs)
+    tuner = ScheduleTuner("spmv", H100_SXM).fit(
+        corpus(n_matrices=9, n_min=256, n_max=512, seed=0), max_mats=9)
+    pop = tenant_population(4, n_min=256, n_max=1024, seed=500)
+    xs = tenant_rhs(pop, seed=0)
+    trace = generate_trace(40, 800.0, 4, seed=3)
+    logs, tels = {}, {}
+    for dev in ("cuda", "cpu"):
+        clock = [100.0]
+        engine = ServingEngine(
+            SelectorService(tuner, cache=ScheduleCache(),
+                            confidence_threshold=0.0, device=dev),
+            slot_max=4, admit_max=3, clock=lambda c=clock: c[0])
+        log = logs[dev] = []
+        inner = engine.service.drain_bucket
+
+        def drain(members, backend="auto", inner=inner, log=log):
+            decs = inner(members, backend=backend)
+            log.append([(r.name, d.y) for (r, _), d in zip(members, decs)])
+            return decs
+
+        engine.service.drain_bucket = drain
+        before = dict(K.LAUNCHES)
+        _engine_stream(engine, pop, xs, clock, trace)
+        tels[dev] = engine.telemetry()
+        if dev == "cuda":
+            launched = {k: K.LAUNCHES[k] - before[k] for k in before}
+            assert sum(engine.service.executor.telemetry().values()) == 0
+    assert [[n for n, _ in d] for d in logs["cuda"]] == \
+        [[n for n, _ in d] for d in logs["cpu"]]
+    for d, dc in zip(logs["cuda"], logs["cpu"]):
+        for (_, y), (_, yc) in zip(d, dc):
+            np.testing.assert_allclose(y, yc, rtol=2e-5, atol=2e-5)
+    for k in ("submitted", "admitted", "completed", "shed", "drains",
+              "multi_request_drains", "resident_admits"):
+        assert tels["cuda"][k] == tels["cpu"][k], k
+    singles = sum(len(d) == 1 for d in logs["cuda"])
+    assert tels["cuda"]["multi_request_drains"] > 0
+    assert launched["bsr_spmv_ell"] == singles
+    assert launched["bsr_spmm_ell"] == tels["cuda"]["multi_request_drains"]
+
+
+def test_engine_thread_runs_on_the_services_card(card):
+    """``start()``'s serving thread makes the service's card current and
+    drains there: every output matches its schedule's plain version on
+    the CPU (a q < 1 ELL pick truncates rows past its cap)."""
+    from repro_torch.core import H100_SXM, ScheduleTuner, corpus
+    from repro_torch.selector import ScheduleCache, SelectorService
+    from repro_torch.serving import (ServingEngine, tenant_population,
+                                     tenant_rhs)
+    tuner = ScheduleTuner("spmv", H100_SXM).fit(
+        corpus(n_matrices=9, n_min=256, n_max=512, seed=0), max_mats=9)
+    pop = tenant_population(3, n_min=256, n_max=1024, seed=500)
+    xs = tenant_rhs(pop, seed=0)
+    svc = SelectorService(tuner, cache=ScheduleCache(),
+                          confidence_threshold=0.0, device=card)
+    engine = ServingEngine(svc, slot_max=8)
+    outs = []
+    inner = svc.drain_bucket
+
+    def drain(members, backend="auto"):
+        assert torch.cuda.current_device() == card.index
+        decs = inner(members, backend=backend)
+        outs.extend((r.csr, r.x, d) for (r, _), d in zip(members, decs))
+        return decs
+
+    svc.drain_bucket = drain
+    engine.start()
+    try:
+        for j in range(12):
+            t = j % len(pop)
+            assert engine.submit(f"th{j}", pop[t][1], xs[t], tenant=t)
+        deadline = time.monotonic() + 60.0
+        while engine.backlog and time.monotonic() < deadline:
+            time.sleep(0.005)
+    finally:
+        engine.stop()
+    tel = engine.telemetry()
+    assert tel["completed"] == 12 and len(outs) == 12
+    for A, x, d in outs:
+        ref = plan("spmv", (A,), schedule=d.schedule, device="cpu").execute(x)
+        np.testing.assert_allclose(d.y, ref.numpy(), rtol=1e-4, atol=1e-4)
