@@ -3,12 +3,14 @@
 spmv/spmm, spgemm and spadd on one NVIDIA GPU at full matrix size, the
 tree-driven ``SelectorService`` on SpMV and SpMM requests, the
 continuous-batching ``ServingEngine`` under Zipf trace replays (with its
-journal, checkpoints and crash restarts), and the MoE decode loop, an MoE prefill and prefill attention at mixtral-8x22b width,
+journal, checkpoints and crash restarts), the characterization loop and
+its calibration report, mutable matrices between solves, and the MoE
+decode loop, an MoE prefill and prefill attention at mixtral-8x22b width,
 all under the guard (``GuardedExecutor``), and holds every kernel against
 its plain PyTorch version (and the sparse ones against a float64 CSR
 oracle).
 
-    python3 chip_smoke.py            # needs one CUDA card; ~7-8 min
+    python3 chip_smoke.py            # needs one CUDA card; ~9-11 min
 
 Phases (any failure exits nonzero; nothing is caught and passed over):
   1. build the five CUDA sources of ``src/repro_torch/csrc`` (one nvcc per
@@ -80,6 +82,37 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      replays' drains (counts zeroed before each replay, read after). Then
      the picked kernels' rows (as in phase 7) on the hottest large
      tenant's served operand, from the shared store;
+  2d. charloop phase, ``{"charloop": ...}`` and ``{"calibration": ...}``
+     lines: the tree step (``build_slice`` and ``characterize_slice(k=5)``
+     for spmv, spgemm and spadd on quickstart's corpus under
+     ``H100_SXM``: CV MAPE and R², the top 3 importances, the groups,
+     ``compare_platforms``); then, under a ``Tracer``, every engine tenant
+     planned at the tree's pick of the selector phase's SpMV and SpMM
+     tuners (through ``SelectorService(confidence_threshold=0)``; SpMV
+     from the engine's shared store, SpMM one tenant at a time), each
+     plan executed 10 times and checked against the float64 oracle; the
+     trace written to ``build/charloop_smoke/trace.jsonl`` and read back
+     by ``repro_torch.obs.report.main``: one calibration line per
+     ``op/layout/backend`` group, each group that launched present with
+     positive launches and measured and modeled times;
+  2e. mutate phase, ``{"mutate": ...}`` lines: ``MutableMatrix(slack=4)``
+     over a copy of ``gen_spatial(524288)`` at bs=32 ELL, then SELL, with
+     a ``PreparedStore``: 24 value steps of 1% of the nonzeros (set and add
+     in turn), each followed by ``plan("spmv", store=store).execute(x)``
+     within ``1e-4 * max|ref|`` of the float64 oracle of the mutated CSR
+     and no store miss; the steps' median time split into host work
+     (``apply_delta`` + ``plan``) and waiting on the card, the position
+     lookup alone, against one full rebuild of the same generation; 3
+     insert steps (2 block-rows x 2 new blocks, within slack), each
+     checked against the oracle with ``valid_counts`` / ``cell_valid``
+     equal to the recounted real slots / cells; the layout's kernel row
+     on the mutated operand (as in phase 7); a delta past the spare pool
+     (an epoch swap); on ELL the ``delta-apply`` and ``slack-overflow``
+     faults, ``fired == recovered``. Then a ``DriftMonitor`` on a 128 x
+     128 matrix driven toward dense (detections, quarantines, refits) and
+     the smallest engine tenant mutated between drains of a
+     ``ServingEngine``: every output before the delta matches the old
+     oracle, every one after it the new;
   3. spgemm main path: ``plan("spgemm", (A, A))`` with ``layout="ell"``
      (padded pairs) and ``"sell"`` (flat cells) on ``gen_spatial(65536)``
      (bs=32, C 9.55 GB) and ``gen_zipf(8192)`` (bs=128), then
@@ -152,6 +185,7 @@ The last lines are the ``kernels`` JSON line, the card line and
 """
 from __future__ import annotations
 
+import gc
 import json
 import shutil
 import statistics
@@ -224,6 +258,20 @@ ENGINE_CRASH = {"qps": 50.0, "n_requests": 128, "rate": 0.05, "seed": 8,
                 "max_restarts": 30, "checkpoint_every": 16,
                 "backoff_base_s": 1e-5}
 ENGINE_DIR = Path(__file__).resolve().parent / "build" / "engine_smoke"
+# the charloop phase's tree step: quickstart's corpus (45 matrices, 384-1024
+# rows, and the 18 synthetic ones) under H100_SXM, 5-fold CV
+CHARLOOP_CORPUS = {"n_matrices": 45, "n_min": 384, "n_max": 1024, "seed": 0}
+CHARLOOP_EXECUTES = 10
+CHARLOOP_DIR = Path(__file__).resolve().parent / "build" / "charloop_smoke"
+# the mutate phase: MutableMatrix(slack=4) over the smoke's
+# gen_spatial(524288) at bs=32, ELL and SELL; 24 value steps of 1% of the
+# nonzeros each (set and add in turn), 3 insert steps of 2 block-rows x 2
+# new blocks (12 of the 16 spare blocks), then one delta past the pool
+MUTATE_SLACK = 4
+MUTATE_STEPS = 24
+MUTATE_SHARE = 0.01
+MUTATE_INSERT_STEPS = 3
+DRIFT_STEPS = 10
 
 
 def log(msg: str) -> None:
@@ -278,12 +326,15 @@ def card_line() -> str:
 
 
 def memory_line(phase: str, device: str) -> None:
-    """Peak device memory of a phase; frees the phase's cached blocks."""
+    """Peak device memory of a phase; frees the phase's cached blocks (and
+    the tensors its finished objects' reference cycles still hold, such as
+    the engine phase's shared store)."""
     import torch
     if device != "cuda":
         return
     emit({"phase": phase,
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
@@ -670,7 +721,7 @@ def run_selector(device: str, serve_n: int, big, members, seed: int,
     (counted over the ticks only). Each picked kernel's row on the served
     operand, as the store holds it, is returned as {kernel: [record]}.
     Then the tree's picks on the larger inputs ``big`` and the bytes they
-    imply, which are not served."""
+    imply, which are not served. Returns the rows and the tuners by k."""
     import torch
     from repro_torch.core import (H100_SXM, ScheduleTuner, corpus,
                                   gen_spatial, spmm_oracle, spmv_oracle)
@@ -782,7 +833,7 @@ def run_selector(device: str, serve_n: int, big, members, seed: int,
                 "modeled_ms": pred.tree_time_s * 1e3,
                 **(block_bytes(A, pred.schedule.block_size)
                    if pred.schedule.backend == "bsr" else {})}})
-    return rows
+    return rows, tuners
 
 
 # --------------------------------------------------------------- engine
@@ -872,8 +923,9 @@ def run_engine(device: str, pop: dict, timer) -> tuple:
     ``reset_metrics``) and replays ``generate_trace(256, qps, a=1.1,
     seed=0)``; then the crash replay runs under ``run_with_restarts``.
     Launch counts are zeroed just before each replay and read just after.
-    Returns the kernel rows on the hottest large tenant's served operand
-    and the replays' launches."""
+    Returns the kernel rows on the hottest large tenant's served operand,
+    the replays' launches, and the population with the shared store (the
+    charloop phase plans on them)."""
     import torch
     from repro_torch.core import (H100_SXM, ScheduleTuner, corpus,
                                   spmm_oracle, spmv_oracle)
@@ -1110,8 +1162,428 @@ def run_engine(device: str, pop: dict, timer) -> tuple:
                          f"engine {name} bs{picks[t].block_size}", xh, ref,
                          csr, timer, device)
         rows.setdefault(rec["kernel"], []).append(rec)
-    del p, csr, store
-    return rows, launches
+    del p, csr
+    return rows, launches, {"population": population, "store": store}
+
+
+# ------------------------------------------------------------ charloop
+
+def run_charloop(device: str, tuners: dict, population, store,
+                 corpus_kw: dict) -> dict:
+    """The charloop phase. Tree step: ``build_slice`` and
+    ``characterize_slice(k=5)`` (quickstart's tree settings) for spmv,
+    spgemm and spadd over ``corpus(**corpus_kw)`` under ``H100_SXM``, each
+    slice's CV scores, top importances and groups, then
+    ``compare_platforms``. Card step, under a ``Tracer``: each tenant of
+    ``population`` planned at the tree's pick of each fitted tuner in
+    ``tuners`` (SpMV at k = 1 through the engine phase's ``store``, which
+    holds those picks; SpMM at k = 8 without a store, one tenant at a
+    time), each plan executed ``CHARLOOP_EXECUTES`` times against the
+    float64 oracle. Report step: the trace written as JSONL, read back by
+    ``repro_torch.obs.report.main``, one ``{"calibration": ...}`` line per
+    group. Returns the card step's launches."""
+    from repro_torch.core import (H100_SXM, build_slice, characterize_slice,
+                                  compare_platforms, corpus,
+                                  grouped_importance, spmm_oracle,
+                                  spmv_oracle)
+    from repro_torch.examples.quickstart import TREE_KW
+    from repro_torch.kernels.bsr_spmv import kernel as K
+    from repro_torch.obs import Tracer, install_tracer
+    from repro_torch.obs import report
+    from repro_torch.selector import ScheduleCache, SelectorService
+    from repro_torch.sparse import plan
+
+    t0 = time.monotonic()
+    mats = corpus(**corpus_kw)
+    results = []
+    for kern in ("spmv", "spgemm", "spadd"):
+        t1 = time.monotonic()
+        data = build_slice(kern, mats, H100_SXM)
+        build_s = time.monotonic() - t1
+        t1 = time.monotonic()
+        res = characterize_slice(data, "gflops", k=5, **TREE_KW)
+        fit_s = time.monotonic() - t1
+        results.append(res)
+        emit({"charloop": {
+            "kernel": kern, "platform": res.platform, "matrices": len(mats),
+            "features": len(res.feature_names), "cv_mape": res.cv["mape"],
+            "cv_r2": res.cv["r2"], "top3": res.importances[:3],
+            "groups": grouped_importance(res), "build_slice_s": build_s,
+            "characterize_s": fit_s}})
+        check(np.isfinite(res.cv["mape"]) and np.isfinite(res.cv["r2"])
+              and abs(sum(v for _, v in res.importances) - 1.0) < 1e-6,
+              f"charloop {kern}: finite CV scores, importances sum to 1")
+    emit({"charloop": {"compare_platforms": compare_platforms(results,
+                                                              top=5),
+                       "tree_step_s": time.monotonic() - t0}})
+
+    rng = np.random.default_rng(7)
+    K.reset_launch_counts()
+    tracer = install_tracer(Tracer())
+    groups, worst = set(), 0.0
+    t0 = time.monotonic()
+    try:
+        for k, tuner in sorted(tuners.items()):
+            op = "spmv" if k == 1 else "spmm"
+            svc = SelectorService(tuner, cache=ScheduleCache(),
+                                  confidence_threshold=0.0, device=device)
+            for name, A in population:
+                x = rng.standard_normal(
+                    A.shape[1] if k == 1 else (A.shape[1], k)).astype(
+                        np.float32)
+                misses = store.misses
+                p = plan(op, (A,), selector=svc, device=device,
+                         store=store if k == 1 else None)
+                served = served_matrix(A, p.schedule)
+                ref = (spmv_oracle if k == 1 else spmm_oracle)(served, x)
+                for _ in range(CHARLOOP_EXECUTES):
+                    y = p.execute(x)
+                y = y.cpu().numpy()
+                e = rel_err(y, ref)
+                worst = max(worst, e)
+                check(y.shape == ref.shape and np.isfinite(y).all()
+                      and e <= TOL, f"charloop {op} {name}: rel_err {e:.3e}")
+                groups.add((op, p.schedule.layout if p.schedule.backend
+                            != "dense" else "dense", p.backend))
+                emit({"charloop": {
+                    "op": op, "tenant": name,
+                    "schedule": describe(p.schedule), "source": p.source,
+                    "modeled_ms": p.modeled_time_s * 1e3,
+                    "ms": p.last_measured_s * 1e3, "rel_err": e,
+                    "store_miss": (store.misses - misses) if k == 1
+                    else None}})
+                del p
+    finally:
+        install_tracer(None)
+    card_s = time.monotonic() - t0
+    launches = {n: v for n, v in K.LAUNCHES.items() if v}
+    shutil.rmtree(CHARLOOP_DIR, ignore_errors=True)
+    CHARLOOP_DIR.mkdir(parents=True)
+    path = CHARLOOP_DIR / "trace.jsonl"
+    n_events = tracer.write_jsonl(str(path))
+    rep = report.main([str(path), "--json", str(CHARLOOP_DIR
+                                                 / "report.json")])
+    for key, row in rep.items():
+        emit({"calibration": {key: row}})
+    emit({"charloop": {"card_step_s": card_s, "trace_events": n_events,
+                       "max_rel_err": worst, "launches": launches,
+                       "groups": len(rep)}})
+    for op, layout, backend in sorted(groups):
+        row = rep.get(f"{op}/{layout}/{backend}")
+        check(row is not None and row["launches"] > 0
+              and row["measured_gm_ms"] > 0 and row["modeled_gm_ms"] > 0,
+              f"charloop: calibration group {op}/{layout}/{backend} "
+              f"reported ({row})")
+    for name in {f"bsr_{op}_{layout}" for op, layout, _ in groups
+                 if layout != "dense"}:
+        check(launches.get(name, 0) > 0, f"charloop: {name} launched")
+    return launches
+
+
+# -------------------------------------------------------------- mutate
+
+def copy_csr(A):
+    """A CSR of its own: ``MutableMatrix`` writes into its arrays."""
+    from repro_torch.core import CSR
+    return CSR(A.row_ptrs.copy(), A.col_idxs.copy(), A.nnz_vals.copy(),
+               A.shape)
+
+
+def counts_match(st) -> bool:
+    """The counts the CUDA kernels stop at (ELL ``valid_counts``, SELL
+    ``cell_valid``) equal the true count of real slots or cells, recounted
+    from the index tensors."""
+    import torch
+    from repro_torch.kernels.bsr_spmv.ops import sell_cell_valid
+    a, zero = st.arrays, st._zero_idx
+    if st.layout == "ell":
+        true = (a["block_indices"] != zero).sum(dim=1).to(torch.int32)
+        return bool(torch.equal(true, a["valid_counts"]))
+    true = sell_cell_valid(a["cell_block"].cpu().numpy(),
+                           a["cell_ptr"].cpu().numpy(), zero)
+    return bool(np.array_equal(true, a["cell_valid"].cpu().numpy()))
+
+
+def new_block_positions(st, A, rng, n_rows: int, per_row: int):
+    """(rows, cols) of 3 entries in each of ``per_row`` absent blocks of
+    ``n_rows`` distinct block-rows of the mutable operand ``st``."""
+    bs = st.block_size
+    n_br, n_bc = -(-A.shape[0] // bs), -(-A.shape[1] // bs)
+    bmap = st._mut["block_map"]
+    rows, cols = [], []
+    for br in rng.choice(n_br, size=n_rows, replace=False):
+        taken = 0
+        while taken < per_row:
+            bc = int(rng.integers(n_bc))
+            if (int(br), bc) in bmap or any(
+                    r // bs == br and c // bs == bc
+                    for r, c in zip(rows, cols)):
+                continue
+            for j in range(3):
+                rows.append(int(br) * bs + j)
+                cols.append(bc * bs + 2 * j)
+            taken += 1
+    return np.array(rows), np.array(cols)
+
+
+def run_mutate(device: str, A0, tuner, population, seed: int,
+               timer) -> tuple:
+    """The mutate phase over a copy of ``A0`` (the smoke's
+    ``gen_spatial``), once at bs=32 ELL and once SELL: ``MutableMatrix(
+    slack=MUTATE_SLACK)`` and a ``PreparedStore``; ``MUTATE_STEPS`` value
+    steps (``MUTATE_SHARE`` of the nonzeros, set and add in turn), each
+    followed by ``plan("spmv", store=store).execute(x)`` against the
+    float64 oracle on the mutated host CSR, with no store miss; the steps'
+    median time split into host work (``apply_delta`` and ``plan``) and
+    waiting on the card (the scatter's tail and the execute), the
+    position lookup timed alone, and one full rebuild of the same
+    generation timed; ``MUTATE_INSERT_STEPS`` insert steps (2 block-rows x
+    2 new blocks each, within slack) checked against the oracle and the
+    kernels' counts against the true counts; one delta past the spare
+    pool (an epoch swap); on ELL the ``delta-apply`` and
+    ``slack-overflow`` faults (``fired == recovered``); each layout's
+    kernel row on the mutated operand. Then a ``DriftMonitor`` on a small
+    matrix driven toward dense, and an engine tenant mutated between
+    drains. Launch counts are zeroed just before and read just after.
+    Returns the kernel rows and the launches."""
+    import torch
+    from repro_torch.core import (H100_SXM, CSR, ScheduleTuner, corpus,
+                                  spmv_oracle)
+    from repro_torch.kernels.bsr_spmv import kernel as K
+    from repro_torch.selector import (DriftMonitor, ScheduleCache,
+                                      SelectorService)
+    from repro_torch.serving import ServingEngine
+    from repro_torch.sparse import (Delta, FaultInjector, MutableMatrix,
+                                    PreparedStore, SparseTensor,
+                                    install_injector, plan)
+    from repro_torch.sparse.mutate import block_lookup
+
+    rng = np.random.default_rng(seed + 23)
+    rows_all = np.repeat(np.arange(A0.shape[0], dtype=np.int64),
+                         A0.row_lengths())
+    x = rng.standard_normal(A0.shape[1]).astype(np.float32)
+    k_vals = int(A0.nnz * MUTATE_SHARE)
+    results = {}
+    K.reset_launch_counts()
+    t_phase = time.monotonic()
+    for layout in ("ell", "sell"):
+        label = f"{layout} spatial_{A0.shape[0]}_bs32"
+        A = copy_csr(A0)
+        s = sched(layout, 32)
+        store = PreparedStore(byte_budget=16 << 30)
+        mm = MutableMatrix(A, store=store, slack=MUTATE_SLACK)
+
+        def serve(what: str, p=None):
+            p = p or plan("spmv", (A,), schedule=s, store=store,
+                          device=device)
+            y = p.execute(x).cpu().numpy()
+            e = rel_err(y, spmv_oracle(A, x))
+            check(y.shape == (A.shape[0],) and np.isfinite(y).all()
+                  and e <= TOL, f"mutate {label} {what}: rel_err {e:.3e}")
+            return p, e
+
+        t0 = time.monotonic()
+        p, e = serve("first build")
+        sync(device)
+        first_s = time.monotonic() - t0
+        st = p.operands[0]
+        misses = store.misses
+        steps, worst = [], e
+        for i in range(MUTATE_STEPS):
+            mode = "set" if i % 2 == 0 else "add"
+            pick = rng.choice(A0.nnz, size=k_vals, replace=False)
+            r, c = rows_all[pick], A0.col_idxs[pick].astype(np.int64)
+            v = (rng.standard_normal(k_vals) * (1.0 if mode == "set"
+                                                 else 0.1)).astype(np.float32)
+            delta = Delta(r, c, v, mode)
+            t0 = time.perf_counter()
+            mm.apply_delta(delta)
+            t1 = time.perf_counter()
+            p = plan("spmv", (A,), schedule=s, store=store, device=device)
+            t2 = time.perf_counter()
+            sync(device)
+            t3 = time.perf_counter()
+            y = p.execute(x)
+            t4 = time.perf_counter()
+            t5 = time.perf_counter()
+            block_lookup(st._mut["block_map"], r // 32, c // 32)
+            lookup_ms = (time.perf_counter() - t5) * 1e3
+            steps.append({"apply_ms": (t1 - t0) * 1e3,
+                          "plan_ms": (t2 - t1) * 1e3,
+                          "host_ms": (t2 - t0) * 1e3,
+                          "device_ms": (t3 - t2) * 1e3
+                          + p.last_measured_s * 1e3,
+                          "step_ms": (t4 - t0) * 1e3,
+                          "lookup_ms": lookup_ms})
+            e = rel_err(y.cpu().numpy(), spmv_oracle(A, x))
+            worst = max(worst, e)
+            check(p.operands[0] is st and e <= TOL,
+                  f"mutate {label} value step {i}: same operand, rel_err "
+                  f"{e:.3e}")
+        check(store.misses == misses, f"mutate {label}: no host prep in the "
+              f"value steps ({store.misses - misses} misses)")
+        med = {k: statistics.median(st_[k] for st_ in steps)
+               for k in steps[0]}
+        t0 = time.monotonic()
+        fresh = SparseTensor.from_csr(A, schedule=s, shape_bucket=True,
+                                      slack=MUTATE_SLACK, device=device)
+        sync(device)
+        rebuild_s = time.monotonic() - t0
+        del fresh
+        emit({"mutate": {"layout": layout, "input": label,
+                         "nnz": A0.nnz, "positions_per_step": k_vals,
+                         "steps": MUTATE_STEPS, "first_build_s": first_s,
+                         "median": med, "rebuild_ms": rebuild_s * 1e3,
+                         "rebuild_over_step": rebuild_s * 1e3
+                         / med["step_ms"],
+                         "store_misses": store.misses - misses,
+                         "max_rel_err": worst,
+                         "blocks_bytes": st.arrays["blocks"].numel() * 4}})
+
+        count = "valid_counts" if layout == "ell" else "cell_valid"
+        for i in range(MUTATE_INSERT_STEPS):
+            r, c = new_block_positions(st, A, rng, 2, 2)
+            before = st.arrays[count].clone()
+            swaps = mm.epoch_swaps
+            mm.apply_delta(Delta(r, c, rng.standard_normal(r.size).astype(
+                np.float32)))
+            _, e = serve(f"insert step {i}")
+            grown = int((st.arrays[count] - before).sum())
+            ok = counts_match(st)
+            emit({"mutate": {"layout": layout, "insert_step": i,
+                             "new_blocks": 4, "count_growth": grown,
+                             "counts_match": ok, "rel_err": e,
+                             "spare_left": len(st.spare_blocks)}})
+            check(mm.epoch_swaps == swaps and grown == 4 and ok
+                  and store.misses == misses,
+                  f"mutate {label} insert step {i}: in place, {count} "
+                  f"+{grown} (4 new blocks), counts match {ok}")
+        # the kernel against its plain version on the mutated operand;
+        # these launches are the row's, not the main path's
+        counted = dict(K.LAUNCHES)
+        rec = matvec_row(st, False, f"mutate {label}", x, spmv_oracle(A, x),
+                         torch_csr(A, device), timer, device)
+        K.LAUNCHES.update(counted)
+        rows = {rec["kernel"]: [rec]}
+
+        n_over = len(st.spare_blocks) + 1
+        r, c = new_block_positions(st, A, rng, n_over, 1)
+        swaps, rebuilds = mm.epoch_swaps, mm.rebuilds
+        t0 = time.monotonic()
+        mm.apply_delta(Delta(r, c, np.ones(r.size, np.float32)))
+        swap_s = time.monotonic() - t0
+        p, e = serve("after the epoch swap")
+        check(mm.epoch_swaps == swaps + 1 and mm.rebuilds == rebuilds + 1
+              and p.operands[0] is not st and counts_match(p.operands[0]),
+              f"mutate {label}: {n_over} new blocks past the pool swap "
+              "the epoch")
+        st = p.operands[0]
+        faults = {}
+        if layout == "ell":
+            for site in ("delta-apply", "slack-overflow"):
+                pick = rng.choice(A.nnz, size=k_vals, replace=False)
+                rows_now = np.repeat(np.arange(A.shape[0], dtype=np.int64),
+                                     A.row_lengths())
+                inj = install_injector(FaultInjector(1.0, sites=(site,),
+                                                     seed=seed))
+                try:
+                    mm.apply_delta(Delta(rows_now[pick],
+                                         A.col_idxs[pick].astype(np.int64),
+                                         np.ones(k_vals, np.float32)))
+                finally:
+                    install_injector(None)
+                _, e = serve(f"after an injected {site}")
+                faults[site] = inj.telemetry()
+                check(faults[site]["fault_fired"]
+                      == faults[site]["fault_recovered"] > 0,
+                      f"mutate {label}: {site} fired == recovered "
+                      f"({faults[site]})")
+        emit({"mutate": {"layout": layout, "overflow_new_blocks": n_over,
+                         "epoch_swap_s": swap_s, "faults": faults,
+                         "telemetry": mm.telemetry(),
+                         "store": store.telemetry()}})
+        for name, recs in rows.items():
+            results.setdefault(name, []).extend(recs)
+        del p, st, mm, store, A
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+    # drift: a small matrix driven toward dense under a DriftMonitor
+    dtuner = ScheduleTuner("spmv", H100_SXM).fit(
+        corpus(n_matrices=6, n_min=128, n_max=192, seed=3), max_mats=3)
+    svc = SelectorService(dtuner, cache=ScheduleCache(), device=device)
+    mon = DriftMonitor(svc, drift_threshold=0.05, accuracy_floor=0.9,
+                       window=6, min_checks=2)
+    d = (rng.random((128, 128)) < 0.02) * rng.standard_normal((128, 128))
+    D = CSR.from_dense(d.astype(np.float32))
+    dstore = PreparedStore()
+    dmm = MutableMatrix(D, store=dstore, monitor=mon, slack=8)
+    xd = rng.standard_normal(128).astype(np.float32)
+    for i in range(DRIFT_STEPS):
+        p = plan("spmv", (D,), selector=svc, store=dstore, device=device)
+        e = rel_err(p.execute(xd).cpu().numpy(), spmv_oracle(D, xd))
+        check(e <= TOL, f"mutate drift step {i}: rel_err {e:.3e}")
+        empt = np.argwhere(D.to_dense() == 0)
+        k = min(1200, empt.shape[0])
+        pos = empt[rng.choice(empt.shape[0], k, replace=False)]
+        dmm.apply_delta(Delta(pos[:, 0], pos[:, 1],
+                              rng.standard_normal(k).astype(np.float32)))
+    emit({"mutate": {"drift": mon.telemetry(),
+                     "drift_evictions": svc.cache.drift_evictions,
+                     "density": D.nnz / (128 * 128),
+                     "mutation": dmm.telemetry()}})
+
+    # an engine tenant mutated between drains
+    t = min(range(len(population)), key=lambda i: population[i][1].nnz)
+    name, A = population[t][0], copy_csr(population[t][1])
+    estore = PreparedStore(byte_budget=16 << 30)
+    esvc = SelectorService(tuner, cache=ScheduleCache(),
+                           confidence_threshold=0.0, prepared_store=estore,
+                           device=device)
+    engine = ServingEngine(esvc, **ENGINE_KW)
+    outs = []
+    engine_watch(engine, outs)
+    mm = MutableMatrix(A, store=estore, slack=MUTATE_SLACK)
+    xe = rng.standard_normal(A.shape[1]).astype(np.float32)
+    ref_old = spmv_oracle(A, xe)
+    for rnd in range(2):
+        for j in range(4):
+            engine.submit(f"before{rnd}.{j}", A, xe, tenant=t)
+        engine.drain_all()
+    n_old = len(outs)
+    rows_t = np.repeat(np.arange(A.shape[0], dtype=np.int64),
+                       A.row_lengths())
+    pick = rng.choice(A.nnz, size=max(A.nnz // 100, 1), replace=False)
+    mm.apply_delta(Delta(rows_t[pick], A.col_idxs[pick].astype(np.int64),
+                         rng.standard_normal(pick.size).astype(np.float32)))
+    ref_new = spmv_oracle(A, xe)
+    for rnd in range(2):
+        for j in range(4):
+            engine.submit(f"after{rnd}.{j}", A, xe, tenant=t)
+        engine.drain_all()
+    err_old = max(rel_err(dec.y, ref_old) for _, dec in outs[:n_old])
+    err_new = max(rel_err(dec.y, ref_new) for _, dec in outs[n_old:])
+    moved = rel_err(ref_new, ref_old)
+    tel = engine.telemetry()
+    emit({"mutate": {"engine_tenant": name, "rows": A.shape[0],
+                     "before": n_old, "after": len(outs) - n_old,
+                     "max_rel_err_before": err_old,
+                     "max_rel_err_after": err_new,
+                     "delta_moves_output_by": moved,
+                     "mutation": mm.telemetry(),
+                     "completed": tel["completed"]}})
+    check(n_old == 8 and len(outs) == 16 and err_old <= TOL
+          and err_new <= TOL and moved > 100 * TOL
+          and tel["admitted"] == tel["completed"] + tel["shed"],
+          f"mutate engine {name}: no result after the delta from the old "
+          f"values (before {err_old:.3e}, after {err_new:.3e}, the delta "
+          f"moves y by {moved:.3e})")
+    launches = {n: v for n, v in K.LAUNCHES.items() if v}
+    emit({"mutate": {"phase_s": time.monotonic() - t_phase,
+                     "launches": launches}})
+    for name in ("bsr_spmv_ell", "bsr_spmv_sell"):
+        check(launches.get(name, 0) > 0, f"mutate: {name} launched")
+    return results, launches
 
 
 # ------------------------------------------------------ spgemm / spadd
@@ -1738,7 +2210,7 @@ def run_flash(device: str, dims: dict, seed: int, timer) -> tuple:
 
 def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, gemm_n: int,
         serve_n: int, unserved_ns, engine_pop: dict, seed: int,
-        timer) -> dict:
+        timer, charloop_corpus: dict = CHARLOOP_CORPUS) -> dict:
     """All phases on ``device``, each followed by its guard line; returns
     the ``kernels`` record."""
     from repro_torch.core import gen_spatial, gen_zipf
@@ -1760,21 +2232,37 @@ def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, gemm_n: int,
     memory_line("matvec", device)
     guard_line("matvec")
 
-    r = run_selector(device, serve_n,
-                     [(n, spatial if n == spatial_n else None)
-                      for n in unserved_ns], members, seed, timer)
+    r, tuners = run_selector(device, serve_n,
+                             [(n, spatial if n == spatial_n else None)
+                              for n in unserved_ns], members, seed, timer)
     for name, recs in r.items():
         results[name] += recs
     memory_line("selector", device)
     guard_line("selector")
 
-    r, l = run_engine(device, engine_pop, timer)
+    r, l, served = run_engine(device, engine_pop, timer)
     for name, recs in r.items():
         results[name] += recs
     for name, n in l.items():
         launches[name] += n
     memory_line("engine", device)
     guard_line("engine")
+
+    population = served["population"]
+    l = run_charloop(device, tuners, population, served.pop("store"),
+                     charloop_corpus)
+    for name, n in l.items():
+        launches[name] += n
+    memory_line("charloop", device)
+    guard_line("charloop")
+
+    r, l = run_mutate(device, spatial, tuners[1], population, seed, timer)
+    for name, recs in r.items():
+        results[name] += recs
+    for name, n in l.items():
+        launches[name] += n
+    memory_line("mutate", device)
+    guard_line("mutate")
 
     # each with the library call that computes A @ A on it
     gemm_inputs = [{"name": f"spatial_{gemm_n}_bs32",

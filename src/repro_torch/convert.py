@@ -8,7 +8,7 @@ port's container, leaf for leaf.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 
@@ -34,7 +34,9 @@ def _schedule(meta: Mapping) -> Schedule:
 
 def sparse_tensor_from_arrays(layout: str, meta: Mapping,
                               arrays: Dict[str, np.ndarray],
-                              device="cuda") -> SparseTensor:
+                              device="cuda", generation: int = 0,
+                              spare_blocks: Sequence[int] = ()
+                              ) -> SparseTensor:
     """The port's ``SparseTensor`` from a JAX ``SparseTensor``'s leaves.
 
     ``meta`` holds the JAX ``SparseMeta`` fields (``layout``, ``shape``,
@@ -43,12 +45,19 @@ def sparse_tensor_from_arrays(layout: str, meta: Mapping,
     package, i.e. without the port's extra SELL ``cell_ptr`` and
     ``cell_valid``, which are derived here). A ``true_shape`` entry in
     ``meta``, when given, is the logical shape of a shape-bucketed
-    container."""
+    container, and a ``zero_idx`` entry the index of its all-zeros block.
+
+    A mutable container (built with ``from_csr(..., slack=)``) also hands
+    over its ``generation`` and the pool of ``spare_blocks`` its inserts
+    claim, so ``apply_delta`` continues where the JAX tensor stopped."""
     if layout not in LAYOUT_FIELDS:
         raise ValueError(f"unknown layout {layout!r}; one of "
                          f"{sorted(LAYOUT_FIELDS)}")
     shape = (int(meta["shape"][0]), int(meta["shape"][1]))
+    # leaves handed over by JAX are read-only; the host container must
+    # take a delta's writes like one the port built
     a = {k: np.asarray(v) for k, v in arrays.items()}
+    a = {k: v if v.flags.writeable else v.copy() for k, v in a.items()}
     if layout == "ell":
         host = ELLBSR(a["block_indices"], a["block_cols"], a["blocks"],
                       shape, int(meta["block_size"]), a["valid_counts"])
@@ -69,4 +78,6 @@ def sparse_tensor_from_arrays(layout: str, meta: Mapping,
     ts = meta.get("true_shape")
     if ts is not None:
         st.true_shape = (int(ts[0]), int(ts[1]))
+    st.generation = int(generation)
+    st.spare_blocks = [int(k) for k in spare_blocks]
     return st

@@ -11,12 +11,18 @@ nothing from ``repro``).
   DecisionTreeRegressor / kfold_cv    tree engine (decision_tree.py)
   spmv_counters / ...                 schedule counters (counters.py)
   run_spmv_model / ...                roofline cost model (perfmodel.py)
+  build_slice / characterize_slice    the characterization loop: per-slice
+  compare_platforms / ...             trees, CV, importances (charloop.py)
   Schedule / ScheduleTuner            loop-driven autotuning (autotune.py)
   select_moe_block_size               MoE tile rule (autotune.py)
   Platform / H100_SXM / PLATFORMS     platform model (platforms.py)
 """
 from .autotune import (BLOCK_SIZES, SELL_SIGMA, Schedule, ScheduleTuner,
                        candidate_schedules, select_moe_block_size)
+from .charloop import (COUNTER_FEATURES, TARGETS, CharacterizationResult,
+                       SliceData, build_slice, characterize_all,
+                       characterize_slice, compare_platforms,
+                       grouped_importance, top_feature)
 from .counters import (sell_spmv_counters, shard_counters, spadd_counters,
                        spgemm_counters, spmv_counters)
 from .csr import (BSR, CSR, ELLBSR, SELLBSR, ell_block_cap, sell_layout,
@@ -34,7 +40,10 @@ from .platforms import H100_SXM, PLATFORMS, Platform
 from .synthetic import GENERATORS, TABLE2, gen_spatial, gen_zipf
 
 __all__ = [
-    "BLOCK_SIZES", "BSR", "CSR", "DOMAINS", "DecisionTreeRegressor",
+    "BLOCK_SIZES", "BSR", "COUNTER_FEATURES", "CSR", "CharacterizationResult",
+    "DOMAINS", "DecisionTreeRegressor", "SliceData", "TARGETS",
+    "build_slice", "characterize_all", "characterize_slice",
+    "compare_platforms", "grouped_importance", "top_feature",
     "ELLBSR", "FEATURE_NAMES", "GENERATORS", "H100_SXM", "PLATFORMS",
     "Platform", "SELLBSR", "SELL_SIGMA", "Schedule", "ScheduleTuner",
     "TABLE2", "THREAD_SWEEP", "branch_entropy", "candidate_schedules",

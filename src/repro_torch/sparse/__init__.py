@@ -21,11 +21,15 @@ fallback ladder torch -> dense on the CPU, the CUDA kernel alone on the
 card; the NaN guard and the quarantine;
 ``resilience``); ``plan(op, operands, selector=service)`` takes its
 schedule from a ``SelectorService`` or a fitted ``ScheduleTuner``.
+``MutableMatrix(csr, store=store).apply_delta(Delta(rows, cols, vals))``
+changes a served matrix in place (``mutate``).
 """
 from . import ops_builtin  # noqa: F401  (registers the built-in ops)
 from .ops_builtin import moe_tile_schedule, route_and_pad
+from .mutate import Delta, MutableMatrix, SlackOverflow
 from .plan import Plan, launch_count, plan, plan_bucket, reset_counters
-from .prepared import PreparedStore, array_key, bucket_edge, content_key
+from .prepared import (PreparedStore, array_key, bucket_edge, content_key,
+                       raw_content_key, split_version_key)
 from .registry import OpSpec, get_op, list_ops, register_op
 from .resilience import (FALLBACK_CHAIN, Deadline, FaultInjector,
                          GuardedExecutor, InjectedFault, NonFiniteOutput,
@@ -35,12 +39,13 @@ from .resilience import (FALLBACK_CHAIN, Deadline, FaultInjector,
 from .tensor import LAYOUT_FIELDS, SparseMeta, SparseTensor
 
 __all__ = [
-    "FALLBACK_CHAIN", "Deadline", "FaultInjector", "GuardedExecutor",
-    "InjectedFault", "LAYOUT_FIELDS", "NonFiniteOutput", "OpSpec", "Plan",
-    "PreparedStore", "Quarantine", "SparseMeta", "SparseTensor",
+    "FALLBACK_CHAIN", "Deadline", "Delta", "FaultInjector",
+    "GuardedExecutor", "InjectedFault", "LAYOUT_FIELDS", "MutableMatrix",
+    "NonFiniteOutput", "OpSpec", "Plan", "PreparedStore", "Quarantine",
+    "SlackOverflow", "SparseMeta", "SparseTensor",
     "array_key", "bucket_edge", "content_key", "default_executor",
     "default_quarantine", "get_op", "install_injector", "launch_count",
     "list_ops", "moe_tile_schedule", "output_finite", "plan", "plan_bucket",
-    "register_dense_ref", "register_op", "reset_counters",
-    "reset_resilience", "route_and_pad", "with_backoff",
+    "raw_content_key", "register_dense_ref", "register_op", "reset_counters",
+    "reset_resilience", "route_and_pad", "split_version_key", "with_backoff",
 ]

@@ -170,7 +170,7 @@ def _plan_matvec(operands, schedule: Optional[Schedule], backend: str, *,
         st = _cached(store, key, lambda: SparseTensor.from_csr(
             a, schedule=sched, layout=lay, slice_height=slice_height,
             sigma=sigma, max_blocks=max_blocks, shape_bucket=shape_bucket,
-            device=device))
+            slack=getattr(a, "mutation_slack", 0), device=device))
     else:
         st = SparseTensor.wrap(a, schedule, device=device)
     if st.layout not in MATVEC_LAYOUTS:
@@ -274,7 +274,8 @@ def _member_tensors(members: List, schedule: Schedule, sigma: int,
                 bool(shape_bucket), str(device))
         sts.append(_cached(store, skey, lambda m=m: SparseTensor.from_csr(
             m, schedule=schedule, sigma=sigma,
-            shape_bucket=bool(shape_bucket), device=device)))
+            shape_bucket=bool(shape_bucket),
+            slack=getattr(m, "mutation_slack", 0), device=device)))
     if len({st.layout for st in sts}) != 1:
         return None
     return sts

@@ -14,12 +14,21 @@ plus a dict lookup and skips host prep entirely.
   padding buys stable shapes for the store's stacked bucket arrays and keeps
   the containers leaf-for-leaf equal to the JAX package's.
 
+* Versioned keys: a ``MutableMatrix`` (``sparse.mutate``) pins
+  ``csr.version_key = "<base sha1>@g<generation>"``, and ``content_key``
+  returns it, so every key formed after a delta names the new generation.
+  ``pop_matching`` takes out the entries that reference an old generation
+  and ``rewrite_key`` moves a rekeyed one to the new; the saved index
+  (version 3, the JAX package's format) gives each entry its ``base`` and
+  ``generation``, and ``load`` keeps only the newest generation per base
+  (``stale_drops``).
+
 An injected ``store-evict`` fault loses the entry on a hit and serves a
 miss (counted in ``fault_evictions``); the caller rebuilds as after a real
-eviction. Left out until their slices land: the mutation rekeying
-(``pop_matching`` / versioned content keys). The JAX package's donation
-check ``_leaves_alive`` has no counterpart: a torch tensor cannot be
-deleted out from under a reference the store holds.
+eviction. The JAX package's donation check ``_leaves_alive`` has no
+counterpart: a torch tensor cannot be deleted out from under a reference
+the store holds, and the mutation path writes into the stored tensors in
+place.
 """
 from __future__ import annotations
 
@@ -38,7 +47,11 @@ from .resilience import (InjectedFault, atomic_write_json, checksum_entries,
                          fault_fired, load_json_guarded, note_recovery,
                          verify_entries)
 
-STORE_INDEX_VERSION = 1
+# v3: per-entry base and generation (a reload keeps only the newest
+# generation of each mutated matrix); v2 added per-entry crc32 checksums.
+# Other versions load as empty, as in the JAX package, whose v3 index this
+# one is.
+STORE_INDEX_VERSION = 3
 
 # Default device-byte budget of a store: enough for serving working sets,
 # small enough that an unbounded stream of distinct matrices cannot pin
@@ -63,7 +76,15 @@ def bucket_edge(n: int) -> int:
 
 def content_key(csr: CSR) -> str:
     """Exact-bytes identity of a matrix for the prepared cache: one sha1
-    pass over the raw CSR arrays."""
+    pass over the raw CSR arrays.
+
+    A versioned mutable operand (``sparse.mutate.MutableMatrix``) carries
+    ``version_key = "<base sha1>@g<generation>"``; that is then the
+    identity, O(1), and a mutated matrix never aliases its own
+    pre-mutation entries because every delta bumps the generation."""
+    vk = getattr(csr, "version_key", None)
+    if vk is not None:
+        return str(vk)
     h = hashlib.sha1()
     h.update(f"csr;{csr.shape[0]}x{csr.shape[1]};{csr.nnz};".encode())
     for arr in (csr.row_ptrs, csr.col_idxs, csr.nnz_vals):
@@ -71,6 +92,29 @@ def content_key(csr: CSR) -> str:
         h.update(str(a.dtype).encode())
         h.update(a.tobytes())
     return h.hexdigest()
+
+
+def raw_content_key(csr: CSR) -> str:
+    """The exact-bytes sha1, ignoring any ``version_key``: the base half of
+    a versioned ``(base, generation)`` identity."""
+    vk = getattr(csr, "version_key", None)
+    if vk is None:
+        return content_key(csr)
+    try:
+        delattr(csr, "version_key")
+        return content_key(csr)
+    finally:
+        csr.version_key = vk
+
+
+def split_version_key(token: str) -> Tuple[str, int]:
+    """``(base, generation)`` of a content-key token: ``"<base>@g<N>"``
+    splits, an unversioned key is generation 0 of itself."""
+    if "@g" in token:
+        base, _, gen = token.rpartition("@g")
+        if gen.isdigit():
+            return base, int(gen)
+    return token, 0
 
 
 def array_key(arr: np.ndarray) -> str:
@@ -97,6 +141,26 @@ def entry_nbytes(value: Any) -> int:
     return entry_nbytes(arrays) if isinstance(arrays, dict) else 0
 
 
+def _key_version(key: Tuple) -> Dict:
+    """``{"base": ..., "generation": ...}`` of a store key: the newest
+    versioned content-key token anywhere in the (nested) tuple, or
+    generation 0 of the empty base when the key is unversioned."""
+    base, gen = "", 0
+
+    def _walk(t: Tuple) -> None:
+        nonlocal base, gen
+        for el in t:
+            if isinstance(el, tuple):
+                _walk(el)
+            elif isinstance(el, str) and "@g" in el:
+                b, g = split_version_key(el)
+                if b != el and g >= gen:
+                    base, gen = b, g
+
+    _walk(key)
+    return {"base": base, "generation": gen}
+
+
 class PreparedStore:
     """Byte-budgeted LRU of finished prepared operands.
 
@@ -116,6 +180,9 @@ class PreparedStore:
     fault_evictions = scoped_int("fault_evictions")
     save_failures = scoped_int("save_failures")
     corrupt_loads = scoped_int("corrupt_loads")
+    mutation_rekeys = scoped_int("mutation_rekeys")
+    mutation_invalidated = scoped_int("mutation_invalidated")
+    stale_drops = scoped_int("stale_drops")
 
     def __init__(self, byte_budget: int = DEFAULT_BYTE_BUDGET) -> None:
         self._metrics = default_registry().scope("prepared_store")
@@ -201,6 +268,42 @@ class PreparedStore:
 
         return any(_walk(k) for k in self._entries)
 
+    def pop_matching(self, content_keys) -> list:
+        """Remove and return every ``(key, value)`` whose key tuple
+        references any of ``content_keys``: the invalidation primitive of
+        the mutation path. ``sparse.mutate`` calls it with a mutated
+        operand's old version key and rekeys, rebuilds or drops each entry;
+        entries of other matrices are never touched."""
+        cks = set(content_keys)
+
+        def _refs(t: Tuple) -> bool:
+            for el in t:
+                if isinstance(el, tuple):
+                    if _refs(el):
+                        return True
+                elif el in cks:
+                    return True
+            return False
+
+        out = []
+        for k in [k for k in self._entries if _refs(k)]:
+            value, nb = self._entries.pop(k)
+            self.bytes_in_use -= nb
+            out.append((k, value))
+        return out
+
+    @staticmethod
+    def rewrite_key(key: Tuple, old_ck: str, new_ck: str) -> Tuple:
+        """The same key tuple with every occurrence of ``old_ck`` replaced
+        by ``new_ck`` (nested tuples included): how a rekeyed entry moves
+        to the next generation without re-deriving its prep kwargs."""
+
+        def _rw(t):
+            return tuple(_rw(el) if isinstance(el, tuple)
+                         else (new_ck if el == old_ck else el) for el in t)
+
+        return _rw(key)
+
     def clear(self) -> None:
         self._entries.clear()
         self.bytes_in_use = 0
@@ -213,7 +316,7 @@ class PreparedStore:
     def save(self, path: str) -> bool:
         """Persist the index + telemetry as checksummed JSON, atomically.
         Returns False (and counts) instead of raising on failure."""
-        entries = [{"key": repr(k), "nbytes": nb}
+        entries = [dict({"key": repr(k), "nbytes": nb}, **_key_version(k))
                    for k, (_, nb) in self._entries.items()]
         payload = {
             "version": STORE_INDEX_VERSION,
@@ -246,6 +349,22 @@ class PreparedStore:
         entries, corrupt = verify_entries(raw if isinstance(raw, list)
                                           else [])
         self.corrupt_loads += corrupt
+        # an index written mid-mutation can list several generations of
+        # one base matrix: only the newest survives the reload
+        newest: Dict[str, int] = {}
+        for e in entries:
+            base = e.get("base", "")
+            if base:
+                newest[base] = max(newest.get(base, 0),
+                                   int(e.get("generation", 0)))
+        kept = []
+        for e in entries:
+            base = e.get("base", "")
+            if base and int(e.get("generation", 0)) < newest[base]:
+                self.stale_drops += 1
+            else:
+                kept.append(e)
+        entries = kept
         tel = payload.get("telemetry", {})
         self.prior = {"telemetry": tel if isinstance(tel, dict) else {},
                       "entries": entries}
@@ -265,6 +384,9 @@ class PreparedStore:
             "fault_evictions": float(self.fault_evictions),
             "save_failures": float(self.save_failures),
             "corrupt_loads": float(self.corrupt_loads),
+            "mutation_rekeys": float(self.mutation_rekeys),
+            "mutation_invalidated": float(self.mutation_invalidated),
+            "stale_drops": float(self.stale_drops),
             "hit_rate": self.hits / lookups if lookups else 0.0,
             "eviction_pressure": self.evictions / max(self.puts, 1),
         }

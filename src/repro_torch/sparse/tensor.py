@@ -18,7 +18,10 @@ block size, the ``Schedule`` that built it) live in ``SparseMeta``. There
 is no pytree: PyTorch has no tracing to carry it through. The host
 container stays on the instance for characterization and ``to_host``.
 
-``ShardedSparseTensor`` and the mutation path come with later slices.
+Mutation (``sparse.mutate``): ``from_csr(..., slack=)`` reserves free
+slots or cells per row and a pool of spare zero blocks, and
+``apply_delta`` writes a delta into the device tensors in place, bumping
+``generation``. ``ShardedSparseTensor`` comes with a later slice.
 """
 from __future__ import annotations
 
@@ -85,6 +88,15 @@ class SparseTensor:
         self._zero_idx: Optional[int] = None
         # SELL: the leading cells that are not bucket padding (None: all).
         self._live_cells: Optional[int] = None
+        # Mutation state: ``generation`` bumps on every applied delta (the
+        # tensors keep their shapes and are written in place);
+        # ``spare_blocks`` is the pool of all-zero blocks a structural
+        # insert can claim (``from_csr(..., slack=)`` fills it); ``_mut``
+        # holds the delta path's host bookkeeping (block map, free-slot
+        # cursors), built on first use.
+        self.generation = 0
+        self.spare_blocks: list = []
+        self._mut: Optional[dict] = None
 
     # ------------------------------------------------------------- basics
     @property
@@ -117,9 +129,16 @@ class SparseTensor:
     def build_container(csr: CSR, schedule: Schedule, *,
                         layout: Optional[str] = None,
                         sigma: int = SELL_SIGMA,
-                        max_blocks: Optional[int] = None) -> HostLayout:
+                        max_blocks: Optional[int] = None,
+                        full_rows: bool = False) -> HostLayout:
         """Host-side container a ``Schedule`` names (``layout="bsr"``: the
-        raw blocked rows, whatever the schedule's ell/sell axis says)."""
+        raw blocked rows, whatever the schedule's ell/sell axis says).
+
+        ``full_rows=True`` ignores the schedule's ``ell_quantile`` cap and
+        ``max_blocks`` and keeps every block: a mutable tensor (``slack >
+        0``) must not drop tail blocks, or a later delta on a dropped
+        position would look like an insert and land in slack with only the
+        delta's values, losing the base values."""
         if schedule.backend == "dense":
             return csr.to_dense()
         bsr = BSR.from_csr(csr, schedule.block_size)
@@ -128,7 +147,9 @@ class SparseTensor:
         if schedule.layout == "sell":
             return SELLBSR.from_bsr(bsr, max(schedule.slice_height, 1), sigma)
         mb = max_blocks
-        if mb is None and schedule.ell_quantile < 1.0:
+        if full_rows:
+            mb = None
+        elif mb is None and schedule.ell_quantile < 1.0:
             mb = ell_block_cap(bsr.blocks_per_row(), schedule.ell_quantile)
         return ELLBSR.from_bsr(bsr, mb)
 
@@ -148,6 +169,7 @@ class SparseTensor:
                  slice_height: int = 8, sigma: int = SELL_SIGMA,
                  max_blocks: Optional[int] = None,
                  shape_bucket: bool = False,
+                 slack: int = 0,
                  device="cuda") -> "SparseTensor":
         """Prepare ``csr`` under ``schedule`` (or the keyword defaults) on
         ``device`` — the card unless ``device="cpu"``; raises when the card
@@ -158,12 +180,24 @@ class SparseTensor:
 
         ``shape_bucket=True`` pads the container's dimensions up to
         ``bucket_edge``s; ``meta.shape`` is then the padded shape and
-        ``true_shape`` the logical one. A raw BSR is never padded."""
+        ``true_shape`` the logical one. A raw BSR is never padded.
+
+        ``slack > 0`` reserves mutation headroom in ELL/SELL containers:
+        ``slack`` more slots per block-row (ELL) or cells per slice row
+        (SELL) and a pool of spare all-zero blocks, so ``apply_delta`` can
+        take structural inserts without a rebuild; it also keeps every
+        block (``full_rows``). ``MutableMatrix`` sets
+        ``csr.mutation_slack`` and the planners pass it here."""
         dev = resolve_device(device)
         if schedule is None:
             schedule = cls.default_schedule(block_size, layout, slice_height)
         container = cls.build_container(csr, schedule, layout=layout,
-                                        sigma=sigma, max_blocks=max_blocks)
+                                        sigma=sigma, max_blocks=max_blocks,
+                                        full_rows=slack > 0)
+        spare: list = []
+        if slack > 0 and isinstance(container, (ELLBSR, SELLBSR)):
+            from .mutate import reserve_slack
+            container, spare = reserve_slack(container, int(slack))
         zero_idx = (int(container.blocks.shape[0]) - 1
                     if isinstance(container, (ELLBSR, SELLBSR)) else None)
         live_cells = (container.n_cells if isinstance(container, SELLBSR)
@@ -173,6 +207,7 @@ class SparseTensor:
         st = cls.from_layout(container, schedule=schedule, device=dev,
                              live_cells=live_cells, zero_idx=zero_idx)
         st.true_shape = (int(csr.shape[0]), int(csr.shape[1]))
+        st.spare_blocks = spare
         return st
 
     @classmethod
@@ -272,6 +307,17 @@ class SparseTensor:
         if isinstance(obj, CSR):
             return cls.from_csr(obj, schedule=schedule, device=device)
         return cls.from_layout(obj, schedule=schedule, device=device)
+
+    # ----------------------------------------------------------- mutation
+    def apply_delta(self, delta) -> "SparseTensor":
+        """Apply a ``sparse.mutate.Delta`` to this prepared container in
+        place: values are written into the device tensors (same shapes, no
+        host prep); structural inserts claim reserved slack
+        (``from_csr(..., slack=)``) and raise ``SlackOverflow`` when it is
+        used up, for ``MutableMatrix`` to rebuild instead. Bumps
+        ``generation``."""
+        from .mutate import apply_delta_to_tensor
+        return apply_delta_to_tensor(self, delta)
 
     # ---------------------------------------------------------- host side
     def to_host(self) -> HostLayout:

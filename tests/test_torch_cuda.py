@@ -1314,3 +1314,106 @@ def test_engine_thread_runs_on_the_services_card(card):
     for A, x, d in outs:
         ref = plan("spmv", (A,), schedule=d.schedule, device="cpu").execute(x)
         np.testing.assert_allclose(d.y, ref.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def _two_insert_row(d, bs):
+    """(block-row, two block-cols) of the first block-row of ``d`` with
+    two fully empty blocks."""
+    n_b = -(-d.shape[0] // bs)
+    for br in range(n_b):
+        empty = [bc for bc in range(n_b)
+                 if not d[br * bs:(br + 1) * bs, bc * bs:(bc + 1) * bs].any()]
+        if len(empty) >= 2:
+            return br, empty[:2]
+    raise AssertionError("no block-row with two empty blocks")
+
+
+@pytest.mark.parametrize("bs", [8, 32, 96])
+@pytest.mark.parametrize("layout", ["ell", "sell"])
+@pytest.mark.parametrize("multi", [False, True])
+def test_mutated_operand_kernels_match_plain(card, bs, layout, multi):
+    """A value delta and two inserts into one block-row, written into a
+    slack container on the card: the kernel (which stops at
+    ``valid_counts`` / ``cell_valid``) against its plain version (every
+    slot or cell) and the float64 oracle of the mutated matrix."""
+    from repro_torch.sparse import Delta, SparseTensor
+    n = 6 * bs + 5
+    d = _dense(n, 1.5 / bs ** 2, bs)
+    A = CSR.from_dense(d)
+    rng = np.random.default_rng(bs)
+    st = SparseTensor.from_csr(A, layout=None if layout == "ell" else layout,
+                               block_size=bs, slack=3, shape_bucket=True,
+                               device=card)
+    lens = np.diff(A.row_ptrs)
+    rows = np.repeat(np.arange(n), lens)
+    pick = rng.choice(rows.size, size=min(12, rows.size), replace=False)
+    br, (c0, c1) = _two_insert_row(d, bs)
+    r = np.r_[rows[pick], br * bs, br * bs + 1, br * bs + 2]
+    c = np.r_[A.col_idxs[pick].astype(np.int64), c0 * bs, c0 * bs + 3,
+              c1 * bs]
+    v = rng.standard_normal(r.size).astype(np.float32)
+    st.apply_delta(Delta(r, c, v, "set"))
+    want = d.astype(np.float64)
+    want[r, c] = v
+    x = rng.standard_normal((n, 16) if multi else n).astype(np.float32)
+    op = "spmm" if multi else "spmv"
+    name = f"bsr_{op}_{layout}"
+    before = K.LAUNCHES[name]
+    y_k = plan(op, (st,), backend="cuda").execute(x).cpu().numpy()
+    y_p = plan(op, (st,), backend="torch", device=card).execute(
+        x).cpu().numpy()
+    assert K.LAUNCHES[name] == before + 1
+    np.testing.assert_allclose(y_k, y_p, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(y_k, want @ x, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("layout", ["ell", "sell"])
+def test_mutable_matrix_on_card(card, layout):
+    """MutableMatrix through a store on the card: value steps in place (no
+    host prep), inserts within slack, then a delta past the spare pool
+    swaps the epoch; every SpMV within 1e-4 of the oracle."""
+    from repro_torch.core.synthetic import gen_spatial
+    from repro_torch.sparse import Delta, MutableMatrix
+    A = gen_spatial(4096, seed=0)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal(A.shape[1]).astype(np.float32)
+    store = PreparedStore()
+    mm = MutableMatrix(A, store=store, slack=2)
+    s = (Schedule("bsr", 32, 1.0, layout="sell", slice_height=8)
+         if layout == "sell" else Schedule("bsr", 32, 1.0))
+
+    def y():
+        p = plan("spmv", (A,), schedule=s, store=store, device=card)
+        out = p.execute(x).cpu().numpy()
+        np.testing.assert_allclose(out, spmv_oracle(A, x), rtol=1e-4,
+                                   atol=1e-4 * np.abs(out).max())
+        return p.operands[0]
+
+    st = y()
+    misses = store.misses
+    rows = np.repeat(np.arange(A.shape[0]), np.diff(A.row_ptrs))
+    for mode in ("set", "add"):
+        pick = rng.choice(A.nnz, size=A.nnz // 100, replace=False)
+        mm.apply_delta(Delta(rows[pick], A.col_idxs[pick].astype(np.int64),
+                             rng.standard_normal(pick.size).astype(
+                                 np.float32), mode))
+        assert y() is st
+    assert store.misses == misses
+    def absent(br, k):
+        """k block-cols of block-row ``br`` that hold no block yet."""
+        return [bc for bc in range(128)
+                if (br, bc) not in st._mut["block_map"]][:k]
+
+    # two new blocks in each of two block-rows, within the slack
+    new = [(br, bc) for br in (0, 64) for bc in absent(br, 2)]
+    r = np.array([br * 32 + 1 for br, _ in new])
+    c = np.array([bc * 32 + 2 for _, bc in new])
+    mm.apply_delta(Delta(r, c, np.ones(r.size, np.float32)))
+    assert y() is st and mm.epoch_swaps == 0
+    # one new block in each of more block-rows than the pool has blocks
+    past = [(br, absent(br, 1)[0])
+            for br in range(1, 2 + len(st.spare_blocks))]
+    mm.apply_delta(Delta(np.array([br * 32 for br, _ in past]),
+                         np.array([bc * 32 for _, bc in past]),
+                         np.full(len(past), 2.0, np.float32)))
+    assert y() is not st and mm.epoch_swaps == 1
