@@ -4,13 +4,14 @@ spmv/spmm, spgemm and spadd on one NVIDIA GPU at full matrix size, the
 tree-driven ``SelectorService`` on SpMV and SpMM requests, the
 continuous-batching ``ServingEngine`` under Zipf trace replays (with its
 journal, checkpoints and crash restarts), the characterization loop and
-its calibration report, mutable matrices between solves, and the MoE
-decode loop, an MoE prefill and prefill attention at mixtral-8x22b width,
-all under the guard (``GuardedExecutor``), and holds every kernel against
-its plain PyTorch version (and the sparse ones against a float64 CSR
-oracle).
+its calibration report, mutable matrices between solves, sharded SpMV/SpMM
+with per-shard selection, the MoE decode loop, an MoE prefill and prefill
+attention at mixtral-8x22b width, and the LM substrate's serving path
+(llama3.2-3b at full size, mixtral-8x22b at full width), all under the
+guard (``GuardedExecutor``), and holds every kernel against its plain
+PyTorch version (and the sparse ones against a float64 CSR oracle).
 
-    python3 chip_smoke.py            # needs one CUDA card; ~9-11 min
+    python3 chip_smoke.py            # needs one CUDA card; ~11-13 min
 
 Phases (any failure exits nonzero; nothing is caught and passed over):
   1. build the five CUDA sources of ``src/repro_torch/csrc`` (one nvcc per
@@ -113,6 +114,26 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      the smallest engine tenant mutated between drains of a
      ``ServingEngine``: every output before the delta matches the old
      oracle, every one after it the new;
+  2f. sharded phase, ``{"sharded": ...}`` lines: (a) ``plan_sharded(
+     "spmv"|"spmm", (gen_spatial(524288),), n_shards=4)`` at bs=32 in ELL
+     and SELL, ``strategy="nnz"`` and ``"rows"``: each execute exactly one
+     plan launch and one launch of the layout's member-axis kernel (the
+     shards stacked as members), the output within ``1e-4 * max|y_ref|`` of
+     the float64 oracle and of the unsharded plan of the same schedule,
+     the bounds, shard nnz, Eq. 5 imbalance, the stacked bytes beside the
+     unsharded operand's and both warm execute times (``cuda_timer``, x on
+     the card); (b) ``plan_sharded("spmv", ..., selector=SelectorService(
+     tuner, confidence_threshold=0))`` on ``gen_zipf(8192)`` and the
+     engine phase's largest tenant: each shard's tree pick reckoned in
+     block bytes before anything is built, then each shard's pick,
+     provenance and confidence, ``RowPartition.imbalance()``, the output
+     against the oracle of the matrix each shard's schedule serves, and a
+     warm re-plan with store hits >= 2 and no miss, every source
+     ``selector-cache``; the service's own guard counts no fall; (c) four
+     explicit schedules (bs 32 ELL, bs 16 SELL, bs 64 ELL, bs 32 SELL) at
+     the spatial size: one plan launch of two ELL and two SELL kernel
+     launches, each shard on its own CUDA stream, the wall time of one
+     execute beside the sum of the four shards' kernel times;
   3. spgemm main path: ``plan("spgemm", (A, A))`` with ``layout="ell"``
      (padded pairs) and ``"sell"`` (flat cells) on ``gen_spatial(65536)``
      (bs=32, C 9.55 GB) and ``gen_zipf(8192)`` (bs=128), then
@@ -145,6 +166,19 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      within ``1e-4 * max|ref|`` of the plain version; then one small
      bfloat16 call against the plain version on float32 inputs at the JAX
      test's 3e-2;
+  6b. lm phase, ``{"lm": ...}`` lines: llama3.2-3b at full width and
+     depth (3.2 B float32 parameters drawn on the card from a seeded
+     ``torch.Generator``) served through ``repro_torch.launch.serve.main``
+     (8 requests, batch 4, prompt 512, 32 generated tokens): tok/s,
+     prefill ms, decode ms per token, peak memory, and the reference's
+     decode-versus-forward property (the last decode step's logits within
+     ``3e-2 * max|logits|`` of a prefill over prompt plus generated
+     tokens); mixtral-8x22b at full width cut to 2 of its 56 layers, a
+     4 x 512 prefill (its cache, ``expert_imbalance`` and
+     ``dropped_fraction``) and 16 decode steps; then
+     ``repro_torch.examples.serve_lm.main`` on the card (a reduced
+     mixtral served, 16 ``decode_moe_ticks``, ``decode_multirhs_ticks``:
+     32 SpMV launches against 8 SpMM launches, counted by the kernels);
   7. per kernel x input, at the main path's shapes: the kernel against its
      plain version over the whole output (spgemm, moe and flash within
      ``1e-4 * max|plain|``, spadd bit for bit), the kernel's median time
@@ -234,6 +268,8 @@ FLASH_DIMS = {"heads": 48, "kv_heads": 8, "d": 128,
 BF16_TOL = 3e-2                    # the JAX bf16 attention test's
 # the serve CLI's default training corpus (repro_torch.selector.serve)
 SELECTOR_CORPUS = {"n_matrices": 18, "n_min": 256, "n_max": 768, "seed": 0}
+# the byte budget of every phase's PreparedStore on the 80 GB card
+STORE_BYTES = 48 << 30
 # the selector phase serves gen_spatial(SERVE_N): at 131072 the tree's
 # bs=256 ELL pick is 27.9 GB of blocks (34.4 GB shape-bucketed, held on the
 # host and the card once per prepared operand, and copied again into the
@@ -244,7 +280,6 @@ SERVE_N = 65536
 # 16384-65536 rows, cut from SuiteSparse's 10^5-10^7; the tree picks bs=256
 # ELL for all eight, ~19 GB of blocks (at 32768-131072, ~72 GB)
 ENGINE_POP = {"n_tenants": 8, "n_min": 16384, "n_max": 65536, "seed": 500}
-ENGINE_STORE_BYTES = 48 << 30
 ENGINE_REQUESTS = 256
 ENGINE_KW = {"slot_max": 8, "slo_ms": 25.0}
 ENGINE_REPLAYS = (                 # (label, offered qps, engine settings)
@@ -272,6 +307,22 @@ MUTATE_STEPS = 24
 MUTATE_SHARE = 0.01
 MUTATE_INSERT_STEPS = 3
 DRIFT_STEPS = 10
+# the sharded phase: 4 row shards of the smoke's gen_spatial(524288) at
+# bs=32 (ELL and SELL, nnz-balanced and equal-row bounds), per-shard tree
+# picks on gen_zipf(8192) and the engine's largest tenant, and four
+# explicit schedules at the spatial size
+SHARD_COUNT = 4
+# the lm phase: llama3.2-3b (src/repro/configs/llama3_2_3b.py) at full
+# width and depth, served as 8 requests of 512 + 32 tokens in batches of 4;
+# mixtral-8x22b at full width cut to 2 of its 56 layers, a 4 x 512 prefill
+# and 16 decode steps
+LM_SERVE = {"arch": "llama3.2-3b", "requests": 8, "batch": 4, "prompt": 512,
+            "gen": 32, "chunk": 128}
+LM_MOE = {"arch": "mixtral-8x22b", "layers": 2, "batch": 4, "prompt": 512,
+          "decode": 16, "chunk": 128}
+# the card's name and power limit, printed beside every time of the new
+# phases (main sets it; a CPU rehearsal has no card)
+CARD = "no card"
 
 
 def log(msg: str) -> None:
@@ -753,7 +804,7 @@ def run_selector(device: str, serve_n: int, big, members, seed: int,
             for name, A in reqs}
         oracle = spmv_oracle if k == 1 else spmm_oracle
         refs = {name: oracle(A, xs[name]) for name, A in reqs}
-        store = PreparedStore(byte_budget=48 << 30)
+        store = PreparedStore(byte_budget=STORE_BYTES)
         svc = SelectorService(tuner, cache=ScheduleCache(),
                               confidence_threshold=0.0, prepared_store=store,
                               device=device, batch_max=8)
@@ -984,7 +1035,7 @@ def run_engine(device: str, pop: dict, timer) -> tuple:
     emit({"engine": {"truncated_nnz": {
         name: A.nnz - B.nnz for (name, A), B in zip(population, served)}}})
 
-    store = PreparedStore(byte_budget=ENGINE_STORE_BYTES)
+    store = PreparedStore(byte_budget=STORE_BYTES)
     shutil.rmtree(ENGINE_DIR, ignore_errors=True)
 
     def make(outs, **kw):
@@ -1584,6 +1635,453 @@ def run_mutate(device: str, A0, tuner, population, seed: int,
     for name in ("bsr_spmv_ell", "bsr_spmv_sell"):
         check(launches.get(name, 0) > 0, f"mutate: {name} launched")
     return results, launches
+
+
+# ------------------------------------------------------------- sharded
+
+def add_counts(total: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def run_sharded(device: str, spatial, zipf, tuner, population, seed: int,
+                timer) -> dict:
+    """The sharded phase (``{"sharded": ...}`` lines): (a) uniform
+    schedules, (b) per-shard selection, (c) explicit heterogeneous
+    schedules, as the module docstring says. Returns the kernels' launches
+    on the phase's main path (the timing runs excluded)."""
+    import torch
+    from repro_torch.core import Schedule, spmm_oracle, spmv_oracle
+    from repro_torch.kernels.bsr_spmv import kernel as K
+    from repro_torch.selector import (ScheduleCache, SchedulePredictor,
+                                      SelectorService, fingerprint)
+    from repro_torch.sparse import (PreparedStore, launch_count,
+                                    partition_rows, plan, plan_sharded,
+                                    reset_counters)
+    from repro_torch.sparse.prepared import entry_nbytes
+
+    n = SHARD_COUNT
+    rng = np.random.default_rng(seed + 11)
+    name = f"spatial_{spatial.shape[0]}_bs32"
+    rhs = {"spmv": rng.standard_normal(spatial.shape[1]).astype(np.float32),
+           "spmm": rng.standard_normal((spatial.shape[1], K_RHS)).astype(
+               np.float32)}
+    refs = {"spmv": spmv_oracle(spatial, rhs["spmv"]),
+            "spmm": spmm_oracle(spatial, rhs["spmm"])}
+    # timed runs take x on the card, so no time is the host copy's
+    on_card = {op: torch.as_tensor(x, device=device) for op, x in rhs.items()}
+    launches: dict = {}
+
+    def one_launch(p, op, runtime, kernels: dict):
+        """Execute ``p`` once; check it is one plan launch and exactly
+        ``kernels`` ({kernel: launches}) of the SpMV/SpMM kernels."""
+        before = (launch_count(op), dict(K.LAUNCHES))
+        y = p.execute(runtime)
+        sync(device)
+        got = {k: K.LAUNCHES[k] - before[1][k] for k in K.LAUNCHES}
+        got = {k: v for k, v in got.items() if v}
+        check(launch_count(op) - before[0] == 1 and got == kernels,
+              f"sharded {op}: one execute is one plan launch and kernel "
+              f"launches {kernels}, got {got}")
+        return y.cpu().numpy()
+
+    # (a) uniform schedules: one stacked launch per execute
+    for layout in ("ell", "sell"):
+        s = sched(layout, 32)
+        store = PreparedStore(byte_budget=STORE_BYTES)
+        K.reset_launch_counts()
+        reset_counters()
+        single = {op: plan(op, (spatial,), schedule=s, store=store,
+                           device=device) for op in rhs}
+        single_bytes = entry_nbytes(single["spmv"].operands[0])
+        rows, plans = [], []
+        for strategy in ("nnz", "rows"):
+            part = partition_rows(spatial, n, strategy)
+            for op in rhs:
+                t0 = time.monotonic()
+                p = plan_sharded(op, (spatial,), n_shards=n, schedule=s,
+                                 strategy=strategy, store=store,
+                                 device=device)
+                plan_s = time.monotonic() - t0
+                y = one_launch(p, op, rhs[op], {f"bsr_{op}_{layout}": 1})
+                y1 = single[op].execute(rhs[op]).cpu().numpy()
+                e_o, e_s = rel_err(y, refs[op]), rel_err(y, y1)
+                check(y.shape == refs[op].shape and np.isfinite(y).all()
+                      and e_o <= TOL and e_s <= TOL,
+                      f"sharded {op} {layout} {strategy}: {e_o:.3e} from "
+                      f"the oracle, {e_s:.3e} from the unsharded plan")
+                stacked = [nb for key, (_, nb) in store._entries.items()
+                           if key[0] == "matvec_shards_stacked"
+                           and key[2] == strategy]
+                rows.append({"input": name, "op": op, "layout": layout,
+                             "strategy": strategy, "n_shards": n,
+                             "bounds": list(part.bounds),
+                             "shard_nnz": list(part.shard_nnz),
+                             "imbalance": part.imbalance(),
+                             "plan_s": plan_s,
+                             "stacked_bytes": stacked[0] if stacked
+                             else None,
+                             "unsharded_bytes": single_bytes,
+                             "rel_err_vs_oracle": e_o,
+                             "rel_err_vs_unsharded": e_s})
+                plans.append((p, op))
+        add_counts(launches, K.LAUNCHES)
+        for rec, (p, op) in zip(rows, plans):
+            rec["ms"] = timer(lambda: p.execute(on_card[op]), iters=10,
+                              warmup=2)
+            rec["unsharded_ms"] = timer(
+                lambda: single[op].execute(on_card[op]), iters=10, warmup=2)
+            rec["card"] = CARD
+            emit({"sharded": rec})
+        del single, plans, store
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+    # (b) per-shard selection through a SelectorService
+    store = PreparedStore(byte_budget=STORE_BYTES)
+    svc = SelectorService(tuner, cache=ScheduleCache(),
+                          confidence_threshold=0.0, prepared_store=store,
+                          device=device)
+    big_name, big = max(population, key=lambda t: t[1].nnz)
+    K.reset_launch_counts()
+    for inp_name, A in ((f"zipf_{zipf.shape[0]}", zipf),
+                        (f"engine {big_name}", big)):
+        part = partition_rows(A, n, "nnz")
+        shards = part.slice(A)
+        # what the tree's picks would hold, reckoned before anything is
+        # built (the stacked launch pads every shard to the largest)
+        picks = [SchedulePredictor(tuner).predict(fingerprint(c)).schedule
+                 for c in shards]
+        held = [block_bytes(c, s.block_size) if s.backend == "bsr" else
+                {"dense_bytes": c.shape[0] * c.shape[1] * 4}
+                for c, s in zip(shards, picks)]
+        sizes = [h.get("bucketed_block_bytes", h.get("dense_bytes", 0))
+                 for h in held]
+        emit({"sharded": {"selection": inp_name,
+                          "picks": [describe(s) for s in picks],
+                          "reckoned": held, "reckoned_bytes": sum(sizes),
+                          "stack_bound_bytes": n * max(sizes)}})
+        check(n * max(sizes) <= STORE_BYTES,
+              f"sharded selection {inp_name}: a stack of {n} x "
+              f"{max(sizes)} reckoned bytes fits the store")
+        x = np.random.default_rng(seed + 12).standard_normal(
+            A.shape[1]).astype(np.float32)
+        t0 = time.monotonic()
+        p = plan_sharded("spmv", (A,), n_shards=n, selector=svc,
+                         device=device)
+        cold_s = time.monotonic() - t0
+        got = [pr["schedule"] for pr in p.shard_provenance]
+        check(got == picks, f"sharded selection {inp_name}: the service "
+              "picks what the tree was reckoned with")
+        # a q < 1 ELL pick serves its shard without the blocks past its
+        # row cap: the oracle is the matrix each shard's schedule serves
+        ref = np.concatenate([spmv_oracle(served_matrix(c, s), x)
+                              for c, s in zip(shards, got)])
+        y = p.execute(x).cpu().numpy()
+        e = rel_err(y, ref)
+        check(np.isfinite(y).all() and e <= TOL,
+              f"sharded selection {inp_name}: rel_err {e:.3e}")
+        hits, misses = store.hits, store.misses
+        t0 = time.monotonic()
+        warm = plan_sharded("spmv", (A,), n_shards=n, selector=svc,
+                            device=device)
+        warm_s = time.monotonic() - t0
+        y2 = warm.execute(x).cpu().numpy()
+        check(store.hits - hits >= 2 and store.misses == misses
+              and np.array_equal(y, y2)
+              and {pr["source"] for pr in warm.shard_provenance}
+              == {"selector-cache"},
+              f"sharded selection {inp_name}: the warm re-plan rebuilds "
+              f"nothing (hits +{store.hits - hits}, misses "
+              f"+{store.misses - misses})")
+        emit({"sharded": {
+            "selection": inp_name, "rows": A.shape[0], "nnz": A.nnz,
+            "imbalance": part.imbalance(), "shard_nnz": list(part.shard_nnz),
+            "picks": [{"schedule": describe(pr["schedule"]),
+                       "source": pr["source"],
+                       "confidence": pr["confidence"],
+                       "fingerprint": pr["fingerprint_key"][:12]}
+                      for pr in p.shard_provenance],
+            "plan": p.describe(), "cold_plan_s": cold_s,
+            "warm_plan_s": warm_s, "warm_store_hits": store.hits - hits,
+            "warm_store_misses": store.misses - misses,
+            "execute_ms": warm.last_measured_s * 1e3,
+            "rel_err_vs_oracle": e, "card": CARD}})
+        del p, warm
+    add_counts(launches, K.LAUNCHES)
+    tel = svc.telemetry()
+    guard = svc.executor.telemetry()
+    emit({"sharded": {"selector_telemetry": {
+        k: tel[k] for k in ("shard_requests", "sharded_plans", "requests")},
+        "service_guard": {**guard,
+                          "quarantined": len(svc.executor.quarantine)}}})
+    check(tel["sharded_plans"] == 4 and tel["shard_requests"] == 4 * n,
+          "select_shards: one decision per shard per sharded plan")
+    check(sum(guard.values()) == 0 and not len(svc.executor.quarantine),
+          "sharded selection: the service's guard counts no fall")
+    del svc, store
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # (c) explicit heterogeneous schedules: one stream per shard
+    scheds = [Schedule("bsr", 32, 1.0),
+              Schedule("bsr", 16, 1.0, layout="sell", slice_height=4),
+              Schedule("bsr", 64, 1.0),
+              Schedule("bsr", 32, 1.0, layout="sell", slice_height=8)]
+    store = PreparedStore(byte_budget=STORE_BYTES)
+    K.reset_launch_counts()
+    t0 = time.monotonic()
+    p = plan_sharded("spmv", (spatial,), n_shards=n, schedules=scheds,
+                     store=store, device=device)
+    plan_s = time.monotonic() - t0
+    check(p.schedule is None, "heterogeneous shards: no single schedule")
+    y = one_launch(p, "spmv", rhs["spmv"],
+                   {"bsr_spmv_ell": 2, "bsr_spmv_sell": 2})
+    add_counts(launches, K.LAUNCHES)
+    e = rel_err(y, refs["spmv"])
+    check(np.isfinite(y).all() and e <= TOL,
+          f"sharded heterogeneous: rel_err {e:.3e}")
+    wall = timer(lambda: p.execute(on_card["spmv"]), iters=10, warmup=2)
+    xt = on_card["spmv"]
+    per_shard = []
+    for st in p.operands[0].shards:
+        kname, cuda_fn, _, idx, count = kernel_args(st, False)
+        bs = st.block_size
+        n_bc = -(-st.meta.shape[1] // bs)
+        xb = torch.zeros(n_bc * bs, dtype=torch.float32, device=device)
+        xb[: xt.shape[0]] = xt
+        xb = xb.reshape(n_bc, bs)
+        blocks = st.arrays["blocks"]
+        per_shard.append({"kernel": kname, "bs": bs,
+                          "rows": st.true_shape[0],
+                          "bytes": entry_nbytes(st),
+                          "ms": timer(lambda: cuda_fn(*idx, blocks, xb,
+                                                      **count))})
+    emit({"sharded": {
+        "heterogeneous": name, "schedules": [describe(s) for s in scheds],
+        "plan_s": plan_s, "execute_wall_ms": wall,
+        "shards": per_shard,
+        "sum_of_shard_kernel_ms": sum(r["ms"] for r in per_shard),
+        "rel_err_vs_oracle": e, "max_abs_err_vs_oracle": float(
+            np.abs(y - refs["spmv"]).max()), "card": CARD}})
+    del p, store
+    emit({"sharded": {"launches": launches}})
+    for kname in ("bsr_spmv_ell", "bsr_spmm_ell", "bsr_spmv_sell",
+                  "bsr_spmm_sell"):
+        check(launches.get(kname, 0) > 0, f"sharded: {kname} launched")
+    return launches
+
+
+# ------------------------------------------------------------------ lm
+
+def device_profile(fn, device: str, top: int = 8):
+    """``fn`` once unprofiled (its host wall ms, warm) and once under
+    ``torch.profiler`` (CPU and CUDA activities). The device time counts
+    the CUDA kernel and memcpy events alone (the CPU operators carry the
+    time of the kernels they launch, so summing both counts each kernel
+    twice): their summed time, their busy time (the union of their
+    intervals) over the unprofiled wall time as the device's busy share,
+    and the ``top`` kernels by device time. None when the profiler saw no
+    device event (then the busy share is not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if device != "cuda":
+        return None
+    sync(device)
+    t0 = time.monotonic()
+    fn()
+    sync(device)
+    wall_ms = (time.monotonic() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        fn()
+        sync(device)
+        prof_wall_ms = (time.monotonic() - t0) * 1e3
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    if not spans:
+        return None
+    busy_us, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy_us += b - a
+            end = b
+        elif b > end:
+            busy_us += b - end
+            end = b
+    ops = sorted(by_name.items(), key=lambda t: -t[1][0])
+    return {"wall_ms": wall_ms, "profiled_wall_ms": prof_wall_ms,
+            "kernels": len(spans),
+            "device_ms": sum(ms for ms, _ in by_name.values()),
+            "busy_ms": busy_us / 1e3,
+            "busy_share": busy_us / 1e3 / wall_ms,
+            "top": [{"op": k[:60], "device_ms": ms, "calls": n}
+                    for k, (ms, n) in ops[:top]]}
+
+
+def run_lm(device: str, seed: int) -> dict:
+    """The lm phase (``{"lm": ...}`` lines): llama3.2-3b at full width and
+    depth served through ``launch.serve.main`` with the decode-versus-
+    forward check, mixtral-8x22b at full width and 2 layers (prefill and
+    decode, its MoE metrics), then ``examples.serve_lm``'s main path on
+    the card. Returns the kernels' launches of the example."""
+    import contextlib
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.examples import serve_lm
+    from repro_torch.kernels.bsr_spmv import kernel as K
+    from repro_torch.kernels.moe_gmm import kernel as MK
+    from repro_torch.launch import serve
+    from repro_torch.models import Model, count_params
+    from repro_torch.models import transformer as tfm
+
+    def peak_reset():
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if device == "cuda" \
+            else None
+
+    # llama3.2-3b at full width and depth through the serve CLI
+    d = LM_SERVE
+    cfg = get_config(d["arch"])
+    t0 = time.monotonic()
+    model = Model(cfg, device=device).init(seed=seed)
+    sync(device)
+    init_s = time.monotonic() - t0
+    peak_reset()
+    with contextlib.redirect_stdout(sys.stderr):
+        res = serve.main(["--arch", d["arch"], "--requests",
+                          str(d["requests"]), "--batch", str(d["batch"]),
+                          "--prompt-len", str(d["prompt"]), "--gen-len",
+                          str(d["gen"]), "--attn-chunk", str(d["chunk"]),
+                          "--device", device], model=model)
+    serve_peak = peak()
+    outs = np.concatenate(res["outputs"])
+    check(outs.shape == (d["requests"], d["gen"]) and (outs >= 0).all()
+          and (outs < cfg.vocab_padded).all(), "lm serve: token shapes")
+    # the reference's decode-versus-forward property on the last batch:
+    # the last decode step against a prefill over prompt + generated
+    toks = np.concatenate([res["prompts"][-1], res["outputs"][-1][:, :-1]],
+                          axis=1)
+    fwd, _ = model.prefill({"tokens": torch.as_tensor(toks)},
+                           attn_chunk=toks.shape[1])
+    last = res["last_logits"].float().cpu().numpy()
+    fwd = fwd.float().cpu().numpy()
+    e = rel_err(last, fwd)
+    check(np.isfinite(last).all() and e < BF16_TOL,
+          f"lm decode vs forward: {e:.3e} >= {BF16_TOL}")
+    emit({"lm": {"arch": d["arch"], "params": count_params(model),
+                 "layers": cfg.n_layers, "d_model": cfg.d_model,
+                 "vocab_padded": cfg.vocab_padded,
+                 "requests": d["requests"], "batch": d["batch"],
+                 "prompt": d["prompt"], "gen": d["gen"],
+                 "attn_chunk": d["chunk"], "init_s": init_s,
+                 "tok_s": res["throughput_tok_s"],
+                 "prefill_ms": res["prefill_ms"],
+                 "decode_ms_per_token": res["decode_ms_per_token"],
+                 "batch_prefill_ms": res["batch_prefill_ms"],
+                 "batch_decode_ms_per_token":
+                     res["batch_decode_ms_per_token"],
+                 "max_memory_allocated": serve_peak,
+                 "decode_vs_forward_rel_err": e, "card": CARD}})
+    # where a warm prefill and a warm decode step spend their time
+    prompt = torch.as_tensor(res["prompts"][-1], device=device)
+    _, cache = model.prefill({"tokens": prompt}, attn_chunk=d["chunk"],
+                             cache_len=d["prompt"] + d["gen"])
+    tok = torch.as_tensor(res["outputs"][-1][:, 0], device=device)
+    prof = {"prefill": device_profile(lambda: model.prefill(
+                {"tokens": prompt}, attn_chunk=d["chunk"],
+                cache_len=d["prompt"] + d["gen"]), device),
+            "decode": device_profile(lambda: model.decode(
+                cache, tok, d["prompt"]), device)}
+    emit({"lm": {"arch": d["arch"], "profile": prof, "card": CARD}})
+    del model, res, fwd, cache
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # mixtral-8x22b at full width, depth cut
+    d = LM_MOE
+    cfg = dataclasses.replace(get_config(d["arch"]), n_layers=d["layers"])
+    model = Model(cfg, device=device).init(seed=seed + 1)
+    toks = torch.as_tensor(np.random.default_rng(seed + 1).integers(
+        1, cfg.vocab_size, (d["batch"], d["prompt"])), device=device)
+    max_len = d["prompt"] + d["decode"]
+    peak_reset()
+    t0 = time.monotonic()
+    with torch.no_grad():
+        x = tfm.embed_tokens(cfg, model, toks)
+        h, cache, aux = tfm.apply_stack(cfg, model.blocks, x,
+                                        mode="prefill",
+                                        attn_chunk=d["chunk"],
+                                        cache_len=max_len)
+        h = tfm.apply_norm(cfg, model.final_norm, h)
+        logits = tfm.logits_at(cfg, model, h[:, -1:])[:, 0]
+    sync(device)
+    prefill_ms = (time.monotonic() - t0) * 1e3
+    want = (d["batch"], min(cfg.window, max_len), cfg.n_kv_heads,
+            cfg.d_head)
+    check(all(tuple(c["self"]["k"].shape) == want for c in cache)
+          and bool(torch.isfinite(logits).all()),
+          f"lm {d['arch']} prefill: cache {want}, finite logits")
+    tok = torch.argmax(logits, -1)
+    t0 = time.monotonic()
+    for i in range(d["decode"]):
+        logits, cache = model.decode(cache, tok, d["prompt"] + i)
+        tok = torch.argmax(logits, -1)
+    sync(device)
+    decode_ms = (time.monotonic() - t0) * 1e3 / d["decode"]
+    check(bool(torch.isfinite(logits).all()),
+          f"lm {d['arch']} decode: finite logits")
+    emit({"lm": {"arch": d["arch"], "layers": cfg.n_layers,
+                 "cut": f"depth {get_config(d['arch']).n_layers} -> "
+                        f"{cfg.n_layers}",
+                 "params": count_params(model), "d_model": cfg.d_model,
+                 "d_ff": cfg.d_ff, "experts": cfg.n_experts,
+                 "window": cfg.window, "cache_len": want[1],
+                 "batch": d["batch"], "prompt": d["prompt"],
+                 "decode_steps": d["decode"], "prefill_ms": prefill_ms,
+                 "decode_ms_per_token": decode_ms,
+                 **{k: float(v) / cfg.n_layers for k, v in aux.items()},
+                 "max_memory_allocated": peak(), "card": CARD}})
+    del model, cache, logits, x, h
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # the serving example's main path on the card
+    K.reset_launch_counts()
+    MK.reset_launch_counts()
+    with contextlib.redirect_stdout(sys.stderr):
+        ex = serve_lm.main(["--device", device])
+    launches = {**{k: v for k, v in K.LAUNCHES.items() if v},
+                "moe_gmm": MK.LAUNCHES["moe_gmm"]}
+    mr, moe = ex["multirhs"], ex["moe"]
+    emit({"lm": {"example": "serve_lm", "serve_tok_s":
+                 ex["serve"]["throughput_tok_s"],
+                 "moe_ticks": len(moe["ticks"]),
+                 "moe_tiles": sorted({bs for bs, _ in moe["ticks"]}),
+                 "moe_cache_hit_rate": moe["cache_hit_rate"],
+                 "multirhs": mr, "launches": launches, "card": CARD}})
+    check(mr["spmv_launches"] == mr["ticks"] * mr["batch"]
+          and mr["spmm_launches"] == mr["ticks"]
+          and launches.get("bsr_spmv_sell") == mr["spmv_launches"]
+          and launches.get("bsr_spmm_sell") == mr["spmm_launches"]
+          and launches["moe_gmm"] == len(moe["ticks"]),
+          f"serve_lm: spmv launches {mr['spmv_launches']} -> spmm "
+          f"{mr['spmm_launches']}, kernels {launches}")
+    return launches
 
 
 # ------------------------------------------------------ spgemm / spadd
@@ -2264,6 +2762,12 @@ def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, gemm_n: int,
     memory_line("mutate", device)
     guard_line("mutate")
 
+    for name, n in run_sharded(device, spatial, zipf, tuners[1], population,
+                               seed, timer).items():
+        launches[name] += n
+    memory_line("sharded", device)
+    guard_line("sharded")
+
     # each with the library call that computes A @ A on it
     gemm_inputs = [{"name": f"spatial_{gemm_n}_bs32",
                     "A": gen_spatial(gemm_n, seed=seed), "bs": 32,
@@ -2295,6 +2799,11 @@ def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, gemm_n: int,
         launches.update(l)
         memory_line(phase, device)
         guard_line(phase)
+
+    for name, n in run_lm(device, seed).items():
+        launches[name] += n
+    memory_line("lm", device)
+    guard_line("lm")
 
     kernels = []
     for name, recs in results.items():
@@ -2377,7 +2886,8 @@ def main() -> int:
     # as the reference accumulates (TF32 would miss its tolerance)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
+    global CARD
+    card = CARD = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     build_all()
     t0 = time.monotonic()

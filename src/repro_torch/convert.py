@@ -1,20 +1,23 @@
 """Carry prepared state over from the JAX package into the port.
 
-The system runs no model, so its "weights" are the prepared sparse
-containers. These functions take plain numpy arrays and dicts — never a
-``repro`` object — so a caller holding a JAX ``SparseTensor`` hands over
-``{name: np.asarray(leaf)}`` and ``dataclasses.asdict(meta)`` and gets the
-port's container, leaf for leaf.
+The sparse system's "weights" are its prepared sparse containers; the LM
+substrate's are its parameters. These functions take plain numpy arrays
+and dicts — never a ``repro`` object — so a caller holding a JAX
+``SparseTensor`` hands over ``{name: np.asarray(leaf)}`` and
+``dataclasses.asdict(meta)`` and gets the port's container, leaf for leaf;
+a sharded one hands over each shard so; a JAX LM parameter tree with numpy
+leaves becomes the port ``Model``'s state (``params_from_jax``).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 
 from .core.autotune import Schedule
 from .core.csr import BSR, CSR, ELLBSR, SELLBSR
-from .sparse.tensor import LAYOUT_FIELDS, SparseTensor
+from .sparse.tensor import (LAYOUT_FIELDS, ShardedMeta, ShardedSparseTensor,
+                            SparseTensor)
 
 
 def csr_from_arrays(row_ptrs, col_idxs, nnz_vals, shape) -> CSR:
@@ -81,3 +84,56 @@ def sparse_tensor_from_arrays(layout: str, meta: Mapping,
     st.generation = int(generation)
     st.spare_blocks = [int(k) for k in spare_blocks]
     return st
+
+
+def sharded_tensor_from_arrays(meta: Mapping,
+                               shards: Sequence[Tuple[Mapping, Dict]],
+                               device="cuda") -> ShardedSparseTensor:
+    """The port's ``ShardedSparseTensor`` from a JAX one's shards.
+
+    ``meta`` holds the JAX ``ShardedMeta`` fields (``shape``, ``bounds``,
+    ``strategy``); ``shards`` one ``(shard meta, arrays)`` pair per shard,
+    each what ``sparse_tensor_from_arrays`` takes (the layout is the shard
+    meta's ``layout``)."""
+    sm = ShardedMeta((int(meta["shape"][0]), int(meta["shape"][1])),
+                     tuple(int(b) for b in meta["bounds"]),
+                     str(meta.get("strategy", "nnz")))
+    return ShardedSparseTensor(sm, [
+        sparse_tensor_from_arrays(m["layout"], m, arrays, device=device)
+        for m, arrays in shards])
+
+
+def _flatten(tree: Mapping, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def params_from_jax(cfg, params: Mapping) -> Dict[str, "torch.Tensor"]:
+    """The port ``Model``'s state (``model.load_state_dict(...)``) from a
+    JAX LM parameter tree with numpy leaves (``jax.tree.map(np.asarray,
+    params)``) of the same config.
+
+    The reference stacks each position ``pi`` of ``cfg.layer_pattern``
+    over the ``cfg.n_groups`` groups (``blocks[pi]`` has a leading group
+    axis, scanned); the port keeps one block per layer in depth order, so
+    layer ``g * len(cfg.layer_pattern) + pi`` gets ``blocks[pi][g]``.
+    Configs whose blocks the port lacks raise ``NotImplementedError``."""
+    import torch
+
+    from .models.transformer import check_ported
+    check_ported(cfg)
+    state = {}
+    for name, leaf in _flatten({k: v for k, v in params.items()
+                                if k != "blocks"}):
+        state[name] = torch.as_tensor(np.array(leaf))
+    n_pat = len(cfg.layer_pattern)
+    for pi, tree in enumerate(params["blocks"]):
+        for name, leaf in _flatten(tree):
+            leaf = np.asarray(leaf)
+            for g in range(cfg.n_groups):
+                state[f"blocks.{g * n_pat + pi}.{name}"] = torch.as_tensor(
+                    np.array(leaf[g]))
+    return state

@@ -11,7 +11,9 @@
 //   SELL: y[b, row_perm[b, r]] = sum_{t in cell_ptr[b, r] .. cell_ptr[b, r+1])
 //                                blocks[b, cell_block[b, t]] @ x[b, cell_col[b, t]]
 //   b is the member of a stacked bucket (B = 1 for a single plan); x is
-//   (n_bc, bs) for SpMV and (n_bc, bs, k) for SpMM, k a multiple of 8. The
+//   (n_bc, bs) for SpMV and (n_bc, bs, k) for SpMM, k a multiple of 8, per
+//   member x_stride floats apart (0: one x that every member reads, the
+//   row shards of one matrix). The
 //   host builds cell_ptr so that a member's last sorted row owns one of
 //   the bucket-pad cells (zero block, column 0) appended to its stream:
 //   the TPU kernel adds every one of them to that row, and they are all
@@ -181,7 +183,7 @@ bsr_spmv_counted_kernel(const int* __restrict__ slot_block,  // ELL (B,n_br,mb) 
                         const float* __restrict__ x,         // (B, n_bc, bs)
                         float* __restrict__ y,               // (B, n_br, bs)
                         int n_br, long long n_slots, long long nb, int bs,
-                        int n_bc, int rows, int g) {
+                        long long x_stride, int rows, int g) {
   extern __shared__ __align__(16) float smem[];
   const int stage = rows * bs + bs;
   int* s_blk = reinterpret_cast<int*>(smem + kStages * stage);
@@ -197,7 +199,7 @@ bsr_spmv_counted_kernel(const int* __restrict__ slot_block,  // ELL (B,n_br,mb) 
   const int n_vec = rb * q;
   const long long tile = (long long)bs * bs;
   const float* a_b = blocks + b * nb * tile + (long long)i0 * bs;
-  const float* x_b = x + b * n_bc * (long long)bs;
+  const float* x_b = x + b * x_stride;
   const int lane_s = t % g, o_base = t / g, workers = kThreads / g;
 
   float acc[kSpmvRows];
@@ -251,8 +253,9 @@ int launch_spmv_counted(const int* slot_block, const int* slot_col,
                         const int* cell_ptr, const int* valid,
                         const int* row_perm, const float* blocks,
                         const float* x, float* y, int n_members, int n_br,
-                        long long n_slots, long long nb, int bs, int n_bc,
-                        int rows_per_cta, cudaStream_t stream) {
+                        long long n_slots, long long nb, int bs,
+                        long long x_stride, int rows_per_cta,
+                        cudaStream_t stream) {
   if (bs <= 0 || bs > 256 || bs % 4 != 0 || n_br <= 0 || n_slots < 0 ||
       (!kSell && n_slots > 2147483647LL) || n_members <= 0 ||
       n_members > 65535 || rows_per_cta <= 0 || rows_per_cta > bs ||
@@ -275,7 +278,7 @@ int launch_spmv_counted(const int* slot_block, const int* slot_col,
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, kThreads, shmem, stream>>>(
       slot_block, slot_col, cell_ptr, valid, row_perm, blocks, x, y, n_br,
-      n_slots, nb, bs, n_bc, rows, g);
+      n_slots, nb, bs, x_stride, rows, g);
   return (int)cudaGetLastError();
 }
 
@@ -325,7 +328,7 @@ bsr_spmm_counted_kernel(const int* __restrict__ slot_block,  // ELL (B,n_br,mb) 
                         const float* __restrict__ x,         // (B, n_bc, bs, k)
                         float* __restrict__ y,               // (B, n_br, bs, k)
                         int n_br, long long n_slots, long long nb, int bs,
-                        int n_bc, int k, int rows, int P) {
+                        long long x_stride, int k, int rows, int P) {
   constexpr int N = R * kRhs;   // sums per thread
   extern __shared__ __align__(16) float smem[];
   const int Q = kThreads / P;
@@ -346,7 +349,7 @@ bsr_spmm_counted_kernel(const int* __restrict__ slot_block,  // ELL (B,n_br,mb) 
   const int n_vec = rb * (bs / 4);
   const long long tile = (long long)bs * bs;
   const float* a_b = blocks + b * nb * tile + (long long)i0 * bs;
-  const float* x_b = x + b * n_bc * (long long)bs * k + k0;
+  const float* x_b = x + b * x_stride + k0;
 
   float acc[N];
 #pragma unroll
@@ -439,8 +442,9 @@ int launch_spmm_counted(const int* slot_block, const int* slot_col,
                         const int* cell_ptr, const int* valid,
                         const int* row_perm, const float* blocks,
                         const float* x, float* y, int n_members, int n_br,
-                        long long n_slots, long long nb, int bs, int n_bc,
-                        int k, int rows_per_cta, cudaStream_t stream) {
+                        long long n_slots, long long nb, int bs,
+                        long long x_stride, int k, int rows_per_cta,
+                        cudaStream_t stream) {
   if (bs <= 0 || bs > 256 || bs % 4 != 0 || k <= 0 || k % kRhs != 0 ||
       n_br <= 0 || n_slots < 0 || (!kSell && n_slots > 2147483647LL) ||
       n_members <= 0 || n_members > 65535 || rows_per_cta <= 0 ||
@@ -474,7 +478,7 @@ int launch_spmm_counted(const int* slot_block, const int* slot_col,
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, kThreads, shmem, stream>>>(
       slot_block, slot_col, cell_ptr, valid, row_perm, blocks, x, y, n_br,
-      n_slots, nb, bs, n_bc, k, rows, P);
+      n_slots, nb, bs, x_stride, k, rows, P);
   return (int)cudaGetLastError();
 }
 
@@ -484,23 +488,26 @@ extern "C" {
 
 // Each returns cudaGetLastError() after the launch (0 = launched).
 // valid_counts (n_members, n_br): the real slots that lead each ELL row
-// (the container's valid_counts).
+// (the container's valid_counts). x_stride: the floats between two
+// members' x (0: all members read one x).
 int bsr_spmv_ell(const int* idx, const int* cols, const int* valid_counts,
                  const float* blocks, const float* x, float* y,
                  int n_members, int n_br, int mb, long long nb, int bs,
-                 int n_bc, int rows_per_cta, cudaStream_t stream) {
+                 long long x_stride, int rows_per_cta, cudaStream_t stream) {
   return launch_spmv_counted<false>(idx, cols, nullptr, valid_counts,
                                     nullptr, blocks, x, y, n_members, n_br,
-                                    mb, nb, bs, n_bc, rows_per_cta, stream);
+                                    mb, nb, bs, x_stride, rows_per_cta,
+                                    stream);
 }
 
 int bsr_spmm_ell(const int* idx, const int* cols, const int* valid_counts,
                  const float* blocks, const float* x, float* y,
                  int n_members, int n_br, int mb, long long nb, int bs,
-                 int n_bc, int k, int rows_per_cta, cudaStream_t stream) {
+                 long long x_stride, int k, int rows_per_cta,
+                 cudaStream_t stream) {
   return launch_spmm_counted<false>(idx, cols, nullptr, valid_counts,
                                     nullptr, blocks, x, y, n_members, n_br,
-                                    mb, nb, bs, n_bc, k, rows_per_cta,
+                                    mb, nb, bs, x_stride, k, rows_per_cta,
                                     stream);
 }
 
@@ -509,11 +516,11 @@ int bsr_spmv_sell(const int* cell_block, const int* cell_col,
                   const int* cell_ptr, const int* cell_valid,
                   const int* row_perm, const float* blocks, const float* x,
                   float* y, int n_members, int n_br, long long n_cells,
-                  long long nb, int bs, int n_bc, int rows_per_cta,
+                  long long nb, int bs, long long x_stride, int rows_per_cta,
                   cudaStream_t stream) {
   return launch_spmv_counted<true>(cell_block, cell_col, cell_ptr,
                                    cell_valid, row_perm, blocks, x, y,
-                                   n_members, n_br, n_cells, nb, bs, n_bc,
+                                   n_members, n_br, n_cells, nb, bs, x_stride,
                                    rows_per_cta, stream);
 }
 
@@ -521,12 +528,12 @@ int bsr_spmm_sell(const int* cell_block, const int* cell_col,
                   const int* cell_ptr, const int* cell_valid,
                   const int* row_perm, const float* blocks, const float* x,
                   float* y, int n_members, int n_br, long long n_cells,
-                  long long nb, int bs, int n_bc, int k, int rows_per_cta,
-                  cudaStream_t stream) {
+                  long long nb, int bs, long long x_stride, int k,
+                  int rows_per_cta, cudaStream_t stream) {
   return launch_spmm_counted<true>(cell_block, cell_col, cell_ptr,
                                    cell_valid, row_perm, blocks, x, y,
-                                   n_members, n_br, n_cells, nb, bs, n_bc, k,
-                                   rows_per_cta, stream);
+                                   n_members, n_br, n_cells, nb, bs, x_stride,
+                                   k, rows_per_cta, stream);
 }
 
 }  // extern "C"

@@ -25,6 +25,10 @@ sorted row, (n_br,) or (B, n_br) int32), a required keyword: they sum
 those cells and one more per row whose range is longer, which is the sum
 over the row's whole range that the plain version computes.
 
+A stacked ``x_blocks`` may be one x expanded over the members (member
+stride 0, ``x.expand(B, ...)``): the kernel then reads that one x for every
+member, with no copy per member.
+
 Every kernel copies ``blocks`` and ``x_blocks`` 16 bytes at a time, so on
 the card both must start on 16 bytes.
 """
@@ -47,14 +51,14 @@ LAUNCHES: Dict[str, int] = {"bsr_spmv_ell": 0, "bsr_spmm_ell": 0,
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
-    "bsr_spmv_ell": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I,
+    "bsr_spmv_ell": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _L, _I,
                      _P],
-    "bsr_spmm_ell": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I,
+    "bsr_spmm_ell": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _L, _I,
                      _I, _P],
     "bsr_spmv_sell": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _I,
-                      _I, _I, _P],
+                      _L, _I, _P],
     "bsr_spmm_sell": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _I,
-                      _I, _I, _I, _P],
+                      _L, _I, _I, _P],
 }
 RHS_TILE = 8          # SpMM kernels take k in multiples of this
 # One CTA per (block-row, RHS tile, member); below this many CTAs the tile
@@ -110,6 +114,16 @@ def _x_shape(name: str, x: torch.Tensor, stacked: bool, multi: bool,
     return int(x.shape[lead]), k
 
 
+def _member_x(x_blocks: torch.Tensor, stacked: bool):
+    """The x the kernel reads and the floats between two members' x. A
+    stacked x whose member axis has stride 0 (one x expanded over the
+    members, as the row shards of one matrix take it) is read once, with
+    stride 0; it is not copied per member."""
+    if stacked and x_blocks.stride(0) == 0 and x_blocks.shape[0] > 0:
+        return x_blocks[0], 0
+    return x_blocks, (x_blocks[0].numel() if stacked else 0)
+
+
 def _check_counts(name: str, key: str, counts, shape) -> None:
     if counts.shape != shape or counts.dtype != torch.int32:
         raise ValueError(f"{name}: {key} must be int32 of shape "
@@ -124,19 +138,20 @@ def _ell(name: str, multi: bool, block_indices, block_cols, blocks,
     if block_indices.device.type == "cpu":
         f = ref.ref_bsr_spmm if multi else ref.ref_bsr_spmv
         return f(block_indices, block_cols, blocks, x_blocks)
+    stacked = block_indices.dim() == 3
+    x_dev, x_stride = _member_x(x_blocks, stacked)
     check_operands(name, {"block_indices": block_indices,
                           "block_cols": block_cols,
                           "valid_counts": valid_counts, "blocks": blocks,
-                          "x_blocks": x_blocks},
+                          "x_blocks": x_dev},
                    ints=("block_indices", "block_cols", "valid_counts"),
                    aligned=("blocks", "x_blocks"))
-    stacked = block_indices.dim() == 3
     if block_indices.dim() != (3 if stacked else 2) or \
             block_cols.shape != block_indices.shape:
         raise ValueError(f"{name}: block_indices/block_cols must be "
                          "(n_br, mb) or (B, n_br, mb) and equal")
     nb, bs = _blocks_shape(name, blocks, stacked)
-    n_bc, k = _x_shape(name, x_blocks, stacked, multi, bs)
+    _, k = _x_shape(name, x_blocks, stacked, multi, bs)
     n_mem = int(block_indices.shape[0]) if stacked else 1
     if stacked and (blocks.shape[0] != n_mem or x_blocks.shape[0] != n_mem):
         raise ValueError(f"{name}: member axes disagree")
@@ -148,8 +163,8 @@ def _ell(name: str, multi: bool, block_indices, block_cols, blocks,
         return y
     rows = rows_per_cta(bs, n_br * (k // RHS_TILE if multi else 1) * n_mem)
     args = [block_indices.data_ptr(), block_cols.data_ptr(),
-            valid_counts.data_ptr(), blocks.data_ptr(), x_blocks.data_ptr(),
-            y.data_ptr(), n_mem, n_br, mb, nb, bs, n_bc] + \
+            valid_counts.data_ptr(), blocks.data_ptr(), x_dev.data_ptr(),
+            y.data_ptr(), n_mem, n_br, mb, nb, bs, x_stride] + \
         ([k] if multi else []) + [rows, _stream(blocks.device)]
     LAUNCHES[name] += 1
     _raise_on(name, _fn(name)(*args))
@@ -162,14 +177,15 @@ def _sell(name: str, multi: bool, cell_block, cell_col, cell_ptr, row_perm,
     if cell_block.device.type == "cpu":
         f = ref.ref_bsr_spmm_sell_perm if multi else ref.ref_bsr_spmv_sell_perm
         return f(cell_block, cell_col, cell_ptr, row_perm, blocks, x_blocks)
+    stacked = cell_block.dim() == 2
+    x_dev, x_stride = _member_x(x_blocks, stacked)
     check_operands(name, {"cell_block": cell_block, "cell_col": cell_col,
                           "cell_ptr": cell_ptr, "cell_valid": cell_valid,
                           "row_perm": row_perm, "blocks": blocks,
-                          "x_blocks": x_blocks},
+                          "x_blocks": x_dev},
                    ints=("cell_block", "cell_col", "cell_ptr", "row_perm",
                          "cell_valid"),
                    aligned=("blocks", "x_blocks"))
-    stacked = cell_block.dim() == 2
     lead = 1 if stacked else 0
     if cell_block.dim() != lead + 1 or cell_col.shape != cell_block.shape \
             or cell_ptr.dim() != lead + 1 or row_perm.dim() != lead + 1 \
@@ -178,7 +194,7 @@ def _sell(name: str, multi: bool, cell_block, cell_col, cell_ptr, row_perm,
                          "cell_ptr (n_br+1,), row_perm (n_br,), each with "
                          "the same optional member axis")
     nb, bs = _blocks_shape(name, blocks, stacked)
-    n_bc, k = _x_shape(name, x_blocks, stacked, multi, bs)
+    _, k = _x_shape(name, x_blocks, stacked, multi, bs)
     n_mem = int(cell_block.shape[0]) if stacked else 1
     if stacked and any(t.shape[0] != n_mem for t in
                        (cell_ptr, row_perm, blocks, x_blocks)):
@@ -191,8 +207,8 @@ def _sell(name: str, multi: bool, cell_block, cell_col, cell_ptr, row_perm,
         return y
     args = [cell_block.data_ptr(), cell_col.data_ptr(), cell_ptr.data_ptr(),
             cell_valid.data_ptr(), row_perm.data_ptr(), blocks.data_ptr(),
-            x_blocks.data_ptr(), y.data_ptr(), n_mem, n_br, n_cells, nb, bs,
-            n_bc] + ([k] if multi else []) + \
+            x_dev.data_ptr(), y.data_ptr(), n_mem, n_br, n_cells, nb, bs,
+            x_stride] + ([k] if multi else []) + \
         [rows_per_cta(bs, n_br * (k // RHS_TILE if multi else 1) * n_mem),
          _stream(blocks.device)]
     LAUNCHES[name] += 1

@@ -1,0 +1,1 @@
+"""Launchers of the LM substrate (port of ``repro.launch``): ``serve``."""

@@ -1,0 +1,213 @@
+"""Attention for the LM substrate (port of ``repro.models.attention``).
+
+Train/prefill uses a chunked online-softmax loop over KV chunks, the plain
+twin of the flash kernel: the (S, S) score matrix never materializes.
+Decode attends a single query against a (possibly rolling) KV cache.
+
+GQA: KV heads are repeated to Q heads *per chunk* (small), so the cache
+stays at KV-head size. Sliding windows are enforced by position masks.
+Queries are taken in blocks of ``chunk`` too, and a KV chunk that no query
+of the block can see (above the causal diagonal, or wholly behind the
+window, the banded skip) is not computed: for every query that is exactly
+the reference's result, since a fully masked chunk adds zero weight after
+a visible one and is wiped (``alpha = 0``) before the first.
+
+Dots: the reference's score and context products take ``dot_dt``
+operands (bf16 at bf16 compute) with float32 accumulation and a float32
+result (``preferred_element_type``); here the ``dot_dt``-rounded operands
+are multiplied in float32, which gives that result.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple, Union
+
+import torch
+from torch import nn
+
+from ..configs.base import ArchConfig
+from .layers import cdtype, param, pdtype, rope, softcap
+from .partitioning import shard_hint
+
+NEG_INF = -1e30
+WINDOWED = ("local_attn", "swa_attn")
+
+
+class Attention(nn.Module):
+    """Q/K/V/O projection weights (``wq``, ``wk``, ``wv``, ``wo``)."""
+
+    def __init__(self, cfg: ArchConfig, device) -> None:
+        super().__init__()
+        d, dt = cfg.d_model, pdtype(cfg)
+        self.wq = param((d, cfg.n_heads * cfg.d_head), dt, device)
+        self.wk = param((d, cfg.n_kv_heads * cfg.d_head), dt, device)
+        self.wv = param((d, cfg.n_kv_heads * cfg.d_head), dt, device)
+        self.wo = param((cfg.n_heads * cfg.d_head, d), dt, device)
+
+
+def init_attention(cfg: ArchConfig, device) -> Attention:
+    return Attention(cfg, device)
+
+
+def _project_qkv(cfg: ArchConfig, p: Attention, x: torch.Tensor):
+    dt = cdtype(cfg)
+    b, s, _ = x.shape
+    q = (x @ p.wq.to(dt)).reshape(b, s, cfg.n_heads, cfg.d_head)
+    k = (x @ p.wk.to(dt)).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    v = (x @ p.wv.to(dt)).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    q = shard_hint(q, "batch", "attn_q_seq", "heads", None)
+    k = shard_hint(k, "batch", None, "kv_heads", None)
+    v = shard_hint(v, "batch", None, "kv_heads", None)
+    return q, k, v
+
+
+def _positions(cfg: ArchConfig, q, k, q_pos, k_pos):
+    """RoPE on q and k (M-RoPE serves the vlm family, ROADMAP item 7b)."""
+    if cfg.rope_theta > 0:
+        q = rope(q, q_pos, cfg.rope_theta)
+        k = rope(k, k_pos, cfg.rope_theta)
+    return q, k
+
+
+def chunked_attention(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor, *, causal: bool, window: int = 0,
+                      chunk: int = 1024, q_offset: int = 0
+                      ) -> torch.Tensor:
+    """Online-softmax attention. q: (B,Sq,H,D); k/v: (B,Sk,KV,D).
+
+    window > 0 restricts to the sliding window (causal implied). The
+    score/context products take compute-dtype operands with float32
+    accumulation; softmax statistics stay float32.
+    """
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    chunk = min(chunk, sk)
+    if sk % chunk:
+        raise ValueError(f"key length {sk} is not a multiple of the "
+                         f"attention chunk {chunk}")
+    rep = h // kv
+    scale = 1.0 / (d ** 0.5)
+    dev = q.device
+    dot_dt = q.dtype
+    # the rounded dot operand, multiplied in float32
+    qf = (q.float() * scale).to(dot_dt).float().transpose(1, 2)
+    out = torch.empty((b, h, sq, d), dtype=torch.float32, device=dev)
+    for q0 in range(0, sq, chunk):
+        q1 = min(q0 + chunk, sq)
+        q_pos = q_offset + torch.arange(q0, q1, device=dev)
+        first, last = q_offset + q0, q_offset + q1 - 1
+        m_run = torch.full((b, h, q1 - q0), NEG_INF, device=dev)
+        l_run = torch.zeros((b, h, q1 - q0), device=dev)
+        acc = torch.zeros((b, h, q1 - q0, d), device=dev)
+        for k0 in range(0, sk, chunk):
+            k1 = k0 + chunk
+            # banded skip: no query of this block sees the chunk
+            if causal and k0 > last:
+                break
+            if window > 0 and first - (k1 - 1) >= window:
+                continue
+            k_c, v_c = k[:, k0:k1], v[:, k0:k1]
+            if rep > 1:
+                k_c = k_c.repeat_interleave(rep, dim=2)
+                v_c = v_c.repeat_interleave(rep, dim=2)
+            k_c = shard_hint(k_c, "batch", None, "heads", None)
+            v_c = shard_hint(v_c, "batch", None, "heads", None)
+            s_blk = torch.einsum("bhqd,bchd->bhqc", qf[:, :, q0:q1],
+                                 k_c.to(dot_dt).float())
+            s_blk = softcap(s_blk, cfg.softcap_attn)
+            k_pos = torch.arange(k0, k1, device=dev)
+            mask = torch.ones((q1 - q0, chunk), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= q_pos[:, None] >= k_pos[None, :]
+            if window > 0:
+                mask &= (q_pos[:, None] - k_pos[None, :]) < window
+            s_blk = s_blk.masked_fill(~mask[None, None], NEG_INF)
+            m_new = torch.maximum(m_run, s_blk.amax(-1))
+            alpha = torch.exp(m_run - m_new)
+            p_blk = torch.exp(s_blk - m_new[..., None])
+            l_run = l_run * alpha + p_blk.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqc,bchd->bhqd", p_blk.to(dot_dt).float(),
+                v_c.to(dot_dt).float())
+            m_run = m_new
+        out[:, :, q0:q1] = acc / torch.clamp_min(l_run, 1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)                  # (B,Sq,H,D)
+
+
+def apply_attention(cfg: ArchConfig, p: Attention, x: torch.Tensor, *,
+                    kind: str, chunk: int = 1024, return_kv: bool = False):
+    """Train/prefill causal self-attention over a full sequence (the
+    reference's bidirectional and cross-attention forms serve the
+    encoder-decoder family, which comes with ROADMAP item 7b)."""
+    q, k, v = _project_qkv(cfg, p, x)
+    pos = torch.arange(x.shape[1], device=x.device)
+    q, k = _positions(cfg, q, k, pos, pos)
+    window = cfg.window if kind in WINDOWED else 0
+    out = chunked_attention(cfg, q, k, v, causal=True, window=window,
+                            chunk=chunk)
+    dt = cdtype(cfg)
+    y = out.reshape(out.shape[0], out.shape[1], -1) @ p.wo.to(dt)
+    y = shard_hint(y, "batch", None, None)
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+# ---------------------------------------------------------------- decode
+def init_attn_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
+                    dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
+    s = min(cfg.window, max_len) if kind in WINDOWED else max_len
+    shape = (batch, s, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attention(cfg: ArchConfig, p: Attention, x: torch.Tensor,
+                     cache: Dict[str, torch.Tensor],
+                     pos: Union[int, torch.Tensor], *, kind: str
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token self-attention. x: (B, 1, d); pos: the current position.
+
+    The new key and value are written into ``cache`` in place (the JAX
+    function returns an updated copy; its serve loop donates the old one),
+    and the same dict is returned."""
+    dt = cdtype(cfg)
+    b = x.shape[0]
+    pos = int(pos)
+    dev = x.device
+    q, k_new, v_new = _project_qkv(cfg, p, x)
+    at = torch.full((1,), pos, device=dev)  # a fill: no host copy
+    q, k_new = _positions(cfg, q, k_new, at, at)
+    window = cfg.window if kind in WINDOWED else 0
+    s_max = cache["k"].shape[1]
+    slot = pos % s_max if window > 0 else min(pos, s_max - 1)
+    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    # absolute position held by each slot (rolling buffer arithmetic)
+    idx = torch.arange(s_max, device=dev)
+    slot_pos = pos - ((pos - idx) % s_max) if window > 0 else idx
+    valid = slot_pos <= pos
+    if window > 0:
+        valid &= (pos - slot_pos) < window
+    # the cache holds already-rotated keys (the rotation depends only on
+    # the absolute position at write time); rolling slot re-use overwrites
+    # only entries the window mask excludes, so nothing is rotated again
+    out = _single_query_attention(cfg, q, cache["k"].to(dt),
+                                  cache["v"].to(dt), valid)
+    y = out.reshape(b, 1, -1) @ p.wo.to(dt)
+    y = shard_hint(y, "batch", None, None)
+    return y, cache
+
+
+def _single_query_attention(cfg: ArchConfig, q, k, v, mask) -> torch.Tensor:
+    rep = cfg.n_heads // cfg.n_kv_heads
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    scale = 1.0 / (cfg.d_head ** 0.5)
+    s = torch.einsum("bqhd,bshd->bhqs", q.float() * scale, k.float())
+    s = softcap(s, cfg.softcap_attn)
+    if mask is not None:
+        s = s.masked_fill(~mask[None, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqs,bshd->bqhd", p, v.float())
+    return out.to(q.dtype)

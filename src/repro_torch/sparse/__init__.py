@@ -7,6 +7,8 @@ flash_attention):
     st = SparseTensor.from_csr(csr, schedule=sched)       # on the card
     y  = plan("spmv", (csr,), schedule=sched).execute(x)
     ys = plan_bucket("spmv", csrs, sched).execute(xs)     # ONE launch
+    y  = plan_sharded("spmv", (csr,), n_shards=4,
+                      selector=service).execute(x)      # one pick a shard
     C  = plan("spgemm", (a, b), schedule=sched).execute() # "bsr" tensor
     Cs = plan_bucket("spadd", [(a, b), ...], sched).execute()
     s  = moe_tile_schedule(counts, d_model, H100_SXM, cache=ScheduleCache())
@@ -27,7 +29,10 @@ changes a served matrix in place (``mutate``).
 from . import ops_builtin  # noqa: F401  (registers the built-in ops)
 from .ops_builtin import moe_tile_schedule, route_and_pad
 from .mutate import Delta, MutableMatrix, SlackOverflow
-from .plan import Plan, launch_count, plan, plan_bucket, reset_counters
+from .partition import (RowPartition, bounds_imbalance, partition_rows,
+                        slice_rows)
+from .plan import (Plan, launch_count, plan, plan_bucket, plan_sharded,
+                   reset_counters)
 from .prepared import (PreparedStore, array_key, bucket_edge, content_key,
                        raw_content_key, split_version_key)
 from .registry import OpSpec, get_op, list_ops, register_op
@@ -36,16 +41,20 @@ from .resilience import (FALLBACK_CHAIN, Deadline, FaultInjector,
                          Quarantine, default_executor, default_quarantine,
                          install_injector, output_finite, register_dense_ref,
                          reset_resilience, with_backoff)
-from .tensor import LAYOUT_FIELDS, SparseMeta, SparseTensor
+from .tensor import (LAYOUT_FIELDS, ShardedMeta, ShardedSparseTensor,
+                     SparseMeta, SparseTensor)
 
 __all__ = [
     "FALLBACK_CHAIN", "Deadline", "Delta", "FaultInjector",
     "GuardedExecutor", "InjectedFault", "LAYOUT_FIELDS", "MutableMatrix",
     "NonFiniteOutput", "OpSpec", "Plan", "PreparedStore", "Quarantine",
-    "SlackOverflow", "SparseMeta", "SparseTensor",
-    "array_key", "bucket_edge", "content_key", "default_executor",
-    "default_quarantine", "get_op", "install_injector", "launch_count",
-    "list_ops", "moe_tile_schedule", "output_finite", "plan", "plan_bucket",
+    "RowPartition", "ShardedMeta", "ShardedSparseTensor", "SlackOverflow",
+    "SparseMeta", "SparseTensor",
+    "array_key", "bounds_imbalance", "bucket_edge", "content_key",
+    "default_executor", "default_quarantine", "get_op", "install_injector",
+    "launch_count", "list_ops", "moe_tile_schedule", "output_finite",
+    "partition_rows", "plan", "plan_bucket", "plan_sharded",
     "raw_content_key", "register_dense_ref", "register_op", "reset_counters",
-    "reset_resilience", "route_and_pad", "split_version_key", "with_backoff",
+    "reset_resilience", "route_and_pad", "slice_rows", "split_version_key",
+    "with_backoff",
 ]

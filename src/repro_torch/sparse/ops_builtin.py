@@ -1,6 +1,6 @@
 """The six built-in ops of the plan/execute facade: spmv, spmm, spgemm,
-spadd, moe_gmm and flash_attention (port of ``repro.sparse.ops_builtin``
-without its sharded parts).
+spadd, moe_gmm and flash_attention (port of ``repro.sparse.ops_builtin``),
+and the sharded spmv/spmm path.
 
 Each planner resolves its operand into a device ``SparseTensor`` once and
 hands back a ``Plan`` whose launch is one call of the layout's kernel: the
@@ -26,6 +26,13 @@ A bucket of members is ONE launch with the member on the kernel grid
 (``blockIdx.z``), where the JAX pallas path looped over members in Python.
 A content-pure bucket (every member the same matrix) is one multi-RHS
 launch of the single-request container instead.
+
+A sharded spmv/spmm plan (``plan_sharded``) whose shards share one
+schedule is one stacked launch of the same member-axis kernels, the shards
+as members (the JAX package ran one ``shard_map`` program over a mesh
+axis); shards under different schedules launch one by one, each on its
+own CUDA stream and round-robin over the cards, and join on the caller's
+stream.
 
 Each op also registers its dense reference, the guard's last rung
 (``resilience.register_dense_ref``): numpy on the host, built lazily and
@@ -61,7 +68,7 @@ from .plan import Plan
 from .prepared import PreparedStore, array_key, bucket_edge, content_key
 from .registry import register_op
 from .resilience import check_fault, dense_ref_cap, register_dense_ref
-from .tensor import SparseMeta, SparseTensor
+from .tensor import ShardedMeta, ShardedSparseTensor, SparseMeta, SparseTensor
 
 MATVEC_LAYOUTS = ("ell", "sell", "dense")
 # RHS columns are padded to a multiple of this on both backends: the SpMM
@@ -618,6 +625,164 @@ def _plan_matvec_bucket(members: List, schedule: Schedule, backend: str, *,
 
     return Plan(op=op, schedule=schedule, backend=backend, _run=run,
                 device=device, n_members=len(shapes))
+
+
+# ---------------------------------------------------------------------------
+# spmv / spmm — sharded launch
+# ---------------------------------------------------------------------------
+
+def _shard_devices(device: torch.device, n: int) -> List[torch.device]:
+    """Round-robin placement of ``n`` shards: over every card when the
+    plan is on the card, else all on ``device``."""
+    if device.type != "cuda":
+        return [device] * n
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", (device.index + i) % count)
+            for i in range(n)]
+
+
+def _check_matvec_shards(op: str, sst: ShardedSparseTensor) -> None:
+    for st in sst.shards:
+        if st.layout not in MATVEC_LAYOUTS:
+            raise ValueError(f"{op} needs ell/sell/dense shards, got a "
+                             f"{st.layout!r} SparseTensor")
+
+
+def _plan_matvec_sharded(operands, schedules, backend: str, *, op: str,
+                         device: torch.device, part=None,
+                         shard_csrs: Optional[List] = None,
+                         rhs_tile: Optional[int] = None,
+                         sigma: int = SELL_SIGMA,
+                         store: Optional[PreparedStore] = None,
+                         shape_bucket: bool = True,
+                         operand_key: Optional[str] = None) -> Plan:
+    """A row-sharded matvec plan: one prepared shard per row range, the
+    outputs concatenated by row range on ``device``.
+
+    The shards of a CSR operand under one schedule run as ONE stacked
+    launch of the layout's member-axis kernel, the shards as members, all
+    reading one x (member stride 0, no copy per shard); the stack is the
+    only device copy, under ``("matvec_shards_stacked", ...)``. Shards
+    under different schedules (the per-shard selector picking other
+    layouts or block sizes for a skewed matrix's shards), and the shards
+    of a prepared ``ShardedSparseTensor`` (already on the device, so a
+    stack would be a second copy), launch one by one, round-robin over
+    the cards. On the card each shard's launch goes on its own CUDA
+    stream, which waits for the caller's stream (where x was made), and
+    every output joins the caller's stream before the concatenation, so
+    nothing passes through the host; a shard on another card gets x by a
+    device-to-device copy, which orders itself after both cards' current
+    streams, and sends its output back the same way. The per-shard
+    containers of a CSR operand ride the store under ``("matvec_shards",
+    ...)``. On the CPU the same code runs in order.
+    """
+    (a,) = operands
+    sst: Optional[ShardedSparseTensor] = a if isinstance(
+        a, ShardedSparseTensor) else None
+    if sst is not None:
+        bounds = sst.meta.bounds
+        schedules = tuple(s if s is not None else st.meta.schedule
+                          for s, st in zip(schedules, sst.shards))
+        _check_matvec_shards(op, sst)
+        shape, strategy = sst.meta.shape, sst.meta.strategy
+    else:
+        if part is None:
+            raise ValueError("sharded planning needs the RowPartition for a "
+                             "CSR operand")
+        bounds = part.bounds
+        if shard_csrs is None:
+            shard_csrs = part.slice(a)
+        shape = (int(a.shape[0]), int(a.shape[1]))
+        strategy = part.strategy
+    n_shards = len(bounds) - 1
+    true_rows = [bounds[i + 1] - bounds[i] for i in range(n_shards)]
+    n_cols = int(shape[1])
+    tile = rhs_tile if rhs_tile is not None else RHS_TILE
+    uniform = len(set(schedules)) == 1 and schedules[0] is not None
+
+    def check_x(x):
+        x = _as_input(x, device)
+        if x.shape[0] != n_cols:
+            raise ValueError(f"{op}: runtime input leading dim "
+                             f"{x.shape[0]} != operand cols {n_cols}")
+        return x
+
+    if uniform and sst is None:
+        stack_key = None if store is None else (
+            "matvec_shards_stacked", operand_key or content_key(a),
+            strategy, bounds, tuple(schedules), sigma, bool(shape_bucket),
+            n_shards, str(device))
+        built = _cached(store, stack_key, lambda: _build_matvec_bucket(
+            shard_csrs, schedules[0], sigma, shape_bucket, device))
+        arrays, width, layout = (built["arrays"], built["width"],
+                                 built["layout"])
+
+        def run(x):
+            x = check_x(x)
+            if x.dim() == 2:
+                k = x.shape[1]
+                xb = x.new_zeros((width, -(-k // tile) * tile))
+                xb[: n_cols, :k] = x
+            else:
+                xb = x.new_zeros((width,))
+                xb[: n_cols] = x
+            # every shard multiplies the whole x: one x, member stride 0
+            xs = xb.unsqueeze(0).expand(n_shards, *xb.shape)
+            ys = _exec_matvec_stacked(arrays, xs, layout, backend)
+            if x.dim() == 2:
+                return torch.cat([ys[i, : true_rows[i], : x.shape[1]]
+                                  for i in range(n_shards)])
+            return torch.cat([ys[i, : true_rows[i]]
+                              for i in range(n_shards)])
+    else:
+        devs = _shard_devices(device, n_shards)
+        if sst is None:
+            key = None if store is None else (
+                "matvec_shards", operand_key or content_key(a), strategy,
+                bounds, tuple(schedules), sigma, bool(shape_bucket),
+                str(device))
+            sst = _cached(store, key, lambda: ShardedSparseTensor(
+                ShardedMeta(shape, bounds, strategy),
+                [SparseTensor.from_csr(c, schedule=s, sigma=sigma,
+                                       shape_bucket=shape_bucket, device=d)
+                 for c, s, d in zip(shard_csrs, schedules, devs)]))
+            _check_matvec_shards(op, sst)
+        sub = [_plan_matvec((st.to(d),), s, backend, op=op, device=d,
+                            rhs_tile=rhs_tile)
+               for st, s, d in zip(sst.shards, schedules, devs)]
+        streams = ([torch.cuda.Stream(device=d) for d in devs]
+                   if device.type == "cuda" else None)
+
+        def run(x):
+            x = check_x(x)
+            if streams is None:
+                return torch.cat([p._run(x) for p in sub])
+            caller = torch.cuda.current_stream(device)
+            ys = []
+            for p, d, s in zip(sub, devs, streams):
+                s.wait_stream(caller)               # x is ready
+                if d == device:
+                    with torch.cuda.stream(s):
+                        x.record_stream(s)          # read on s
+                        y = p._run(x)
+                    ys.append((y, s))
+                    continue
+                # another card: the copies there and back order themselves
+                # after the current streams of both cards (s on d, the
+                # caller's here), so neither tensor changes streams
+                with torch.cuda.device(d), torch.cuda.stream(s):
+                    y = p._run(x.to(d, non_blocking=True))
+                    ys.append((y.to(device, non_blocking=True), None))
+            for y, s in ys:
+                if s is not None:
+                    caller.wait_stream(s)
+                    y.record_stream(caller)  # made on s, read on the caller
+            return torch.cat([y for y, _ in ys])
+
+    return Plan(op=op, schedule=schedules[0] if uniform else None,
+                backend=backend, _run=run, device=device,
+                operands=(sst,) if sst is not None else (),
+                n_members=n_shards, n_shards=n_shards)
 
 
 # ---------------------------------------------------------------------------
@@ -1362,13 +1527,15 @@ register_op(
     operand_spec="(A: CSR | SparseTensor | ELLBSR/SELLBSR) -> execute(x: (n,))",
     layouts=MATVEC_LAYOUTS,
     bucket_planner=functools.partial(_plan_matvec_bucket, op="spmv"),
-    bucket_layouts=_matvec_bucket_layouts)
+    bucket_layouts=_matvec_bucket_layouts,
+    sharded_planner=functools.partial(_plan_matvec_sharded, op="spmv"))
 register_op(
     "spmm", functools.partial(_plan_matvec, op="spmm"),
     operand_spec="(A: CSR | SparseTensor) -> execute(X: (n, k))",
     layouts=MATVEC_LAYOUTS,
     bucket_planner=functools.partial(_plan_matvec_bucket, op="spmm"),
-    bucket_layouts=_matvec_bucket_layouts)
+    bucket_layouts=_matvec_bucket_layouts,
+    sharded_planner=functools.partial(_plan_matvec_sharded, op="spmm"))
 register_op(
     "spgemm", _plan_spgemm,
     operand_spec="(A: CSR, B: CSR) -> execute() -> SparseTensor (bsr)",

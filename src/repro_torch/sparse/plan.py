@@ -1,5 +1,5 @@
 """plan/execute: the compile-style front door to the sparse kernels (port of
-``repro.sparse.plan`` without its sharded path).
+``repro.sparse.plan``).
 
 ``plan(op, operands, schedule=... | selector=...)`` resolves a ``Schedule``
 (explicitly, through a fitted ``ScheduleTuner``, or through the online
@@ -8,7 +8,11 @@ once, and returns a ``Plan`` — an executable carrying the resolved
 schedule, the selection provenance (source / fingerprint / confidence /
 modeled cost), the backend and the prepared device operands.
 ``plan_bucket`` builds ONE launch for a whole same-schedule bucket: the
-member axis is on the kernel grid.
+member axis is on the kernel grid. ``plan_sharded`` splits a matrix's rows
+into nnz-balanced shards, resolves one schedule per shard and executes
+them as one stacked launch (one schedule) or per-shard launches on their
+own CUDA streams (several, or the shards of a prepared
+``ShardedSparseTensor``).
 
 Device and backend are explicit. Every entry point takes ``device=``, the
 card by default, and raises when the card is asked for and there is none;
@@ -82,6 +86,11 @@ class Plan:
     modeled_time_s: Optional[float] = None
     confidence: Optional[float] = None
     n_members: int = 1                  # >1 for stacked bucket plans
+    n_shards: int = 1                   # >1 for sharded plans
+    # per-shard selection provenance of a sharded plan: one dict per shard
+    # with its source, schedule and (from a selector) fingerprint key,
+    # confidence and modeled time
+    shard_provenance: Optional[List[Dict]] = None
     # end-to-end time of the most recent execute: the launch, the guard's
     # finiteness check and the stream synchronize
     last_measured_s: Optional[float] = None
@@ -103,11 +112,15 @@ class Plan:
                           if self.modeled_time_s else None)
             # backend read AFTER the run: the guard rewrites it when the
             # launch fell down the fallback ladder
-            ev.update(op=self.op, backend=self.backend,
-                      layout=("dense" if s is None or s.backend == "dense"
-                              else s.layout),
+            if s is None and self.n_shards > 1:
+                layout = "per-shard"
+            else:
+                layout = ("dense" if s is None or s.backend == "dense"
+                          else s.layout)
+            ev.update(op=self.op, backend=self.backend, layout=layout,
                       measured_ms=dt * 1e3, modeled_ms=modeled_ms,
-                      source=self.source, n_members=self.n_members)
+                      source=self.source, n_members=self.n_members,
+                      n_shards=self.n_shards)
         reg = default_registry()
         reg.observe(f"launch_ms.{self.op}", dt * 1e3)
         if modeled_ms:
@@ -120,7 +133,7 @@ class Plan:
     def describe(self) -> str:
         s = self.schedule
         if s is None:
-            sched = "none"
+            sched = "per-shard" if self.n_shards > 1 else "none"
         elif s.backend == "dense":
             sched = "dense"
         else:
@@ -128,6 +141,8 @@ class Plan:
                    else f"ell q={s.ell_quantile}")
             sched = f"{s.backend} bs={s.block_size} {lay} rhs={s.n_rhs}"
         extra = f" members={self.n_members}" if self.n_members > 1 else ""
+        if self.n_shards > 1:
+            extra = f" shards={self.n_shards}"
         return (f"plan[{self.op}] {sched} {self.backend}@{self.device} "
                 f"via {self.source}{extra}")
 
@@ -241,6 +256,168 @@ def plan(op: str, operands, schedule: Optional[Schedule] = None,
         dense_run=dense_run, executor=executor)
     for k, v in provenance.items():
         setattr(p, k, v)
+    return p
+
+
+def plan_sharded(op: str, operands, n_shards: Optional[int] = None,
+                 schedule: Optional[Schedule] = None,
+                 schedules: Optional[Sequence[Schedule]] = None,
+                 selector=None, strategy: str = "nnz", backend: str = "auto",
+                 store: Optional[PreparedStore] = None, device="cuda", *,
+                 executor: Optional[resilience.GuardedExecutor] = None,
+                 **op_kwargs) -> Plan:
+    """Sharded plan on ``device``: nnz-balanced row shards, one schedule
+    per shard.
+
+    The first operand's rows are partitioned into ``n_shards`` contiguous
+    shards (``strategy="nnz"`` balances work through the Eq. 5 counters;
+    ``"rows"`` is the naive equal-row split). Each shard's schedule is
+    resolved on its own: explicitly (``schedule`` for all shards,
+    ``schedules`` per shard) or through the ``selector``, whose per-shard
+    fingerprints let a skewed matrix get different layouts or block sizes
+    per shard. The op's sharded planner builds the launch: one stacked
+    launch when the shard schedules agree, per-shard launches on their own
+    CUDA streams otherwise and for a prepared ``ShardedSparseTensor``, whose
+    shards are already on the device. ``n_shards`` defaults to the number
+    of cards
+    on the card and to 1 on the CPU.
+
+    Per-shard provenance lands on ``Plan.shard_provenance``. The
+    PreparedStore (``store=``, or the selector's own) caches the partition
+    and the prepared shard operands, so warm sharded plans skip both. The
+    build and every launch run under the guard at the ``shard-dispatch``
+    fault site.
+    """
+    from .partition import STRATEGIES, partition_rows
+    from .tensor import ShardedSparseTensor
+    spec = get_op(op)
+    if spec.sharded_planner is None:
+        raise ValueError(f"op {op!r} has no sharded execution path; "
+                         "ops with one register a sharded_planner")
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown partition strategy {strategy!r}; "
+                         f"one of {STRATEGIES}")
+    if not isinstance(operands, tuple):
+        operands = (operands,)
+    dev = resolve_device(device)
+    backend = resolve_backend(backend, dev)
+    a = operands[0]
+    if selector is not None and store is None:
+        store = getattr(selector, "prepared_store", None)
+    if executor is None and selector is not None:
+        executor = getattr(selector, "executor", None)
+
+    part = None
+    shard_csrs: Optional[List[CSR]] = None
+    ck: Optional[str] = None
+    from_prepared = False
+    if isinstance(a, ShardedSparseTensor):
+        n_parts = a.n_shards
+        if n_shards is not None and int(n_shards) != n_parts:
+            raise ValueError(f"operand is already partitioned into "
+                             f"{n_parts} shards; n_shards={n_shards} "
+                             "cannot re-partition a ShardedSparseTensor")
+        if schedules is None and schedule is None:
+            if selector is not None:
+                raise TypeError(
+                    "selector-resolved sharded planning needs a CSR first "
+                    "operand (a prepared ShardedSparseTensor carries its "
+                    "shards' schedules; pass the CSR to re-select)")
+            schedules = a.schedules()
+            from_prepared = True
+    elif isinstance(a, CSR):
+        if n_shards is None:
+            n_shards = torch.cuda.device_count() if dev.type == "cuda" else 1
+        n_shards = max(int(n_shards), 1)
+        if store is not None:
+            from .prepared import content_key
+            ck = content_key(a)
+        part_key = None if ck is None else ("row_partition", ck,
+                                            n_shards, strategy)
+        built = store.get(part_key) if part_key is not None else None
+        if built is None:
+            part = partition_rows(a, n_shards, strategy)
+            built = {"part": part, "shards": part.slice(a)}
+            if part_key is not None:
+                # host CSR slices hold no tensor, so the store's own
+                # accounting would see 0 bytes and its LRU could never
+                # evict them: count them here
+                store.put(part_key, built, nbytes=sum(
+                    arr.nbytes for c in built["shards"]
+                    for arr in (c.row_ptrs, c.col_idxs, c.nnz_vals)))
+        part = built["part"]
+        shard_csrs = built["shards"]
+        n_parts = part.n_parts
+    else:
+        raise TypeError("plan_sharded needs a CSR or ShardedSparseTensor "
+                        f"first operand, got {type(a).__name__}")
+
+    provenance: List[Dict]
+    if schedules is not None:
+        scheds = list(schedules)
+        if len(scheds) != n_parts:
+            raise ValueError(f"{len(scheds)} schedules for {n_parts} shards")
+        src = "prepared" if from_prepared else "explicit"
+        provenance = [{"source": src, "schedule": s} for s in scheds]
+    elif schedule is not None:
+        scheds = [schedule] * n_parts
+        provenance = [{"source": "explicit", "schedule": schedule}
+                      for _ in range(n_parts)]
+    elif selector is not None:
+        if shard_csrs is None:
+            raise TypeError("selector-resolved sharded planning needs a CSR "
+                            "first operand (shards must be characterized)")
+        if hasattr(selector, "select_shards"):       # SelectorService
+            decs = selector.select_shards(shard_csrs, name=f"{op}-shard")
+            scheds = [d.schedule for d in decs]
+            provenance = [{"source": f"selector-{d.source}",
+                           "fingerprint_key": d.fingerprint_key,
+                           "confidence": d.confidence,
+                           "modeled_time_s": d.modeled_time_s,
+                           "schedule": d.schedule} for d in decs]
+        elif hasattr(selector, "select"):            # ScheduleTuner
+            scheds, provenance = [], []
+            for c in shard_csrs:
+                s, info = selector.select(c)
+                scheds.append(s)
+                provenance.append({
+                    "source": "tuner", "schedule": s,
+                    "modeled_time_s": info.get("verified_time_s")})
+        else:
+            raise _unsupported_selector(selector)
+    else:
+        default = SparseTensor.default_schedule()
+        scheds = [default] * n_parts
+        provenance = [{"source": "default", "schedule": default}
+                      for _ in range(n_parts)]
+    for s in scheds:
+        if s is not None and s.backend != "dense" and spec.layouts \
+                and s.layout not in spec.layouts:
+            raise ValueError(f"op {op!r} supports layouts {spec.layouts}, "
+                             f"a shard schedule asks for {s.layout!r}")
+
+    if store is not None and spec.sharded_store_ok:
+        op_kwargs = dict(op_kwargs, store=store)
+        if ck is not None:
+            op_kwargs.setdefault("operand_key", ck)
+    dense_run = resilience.make_dense_run(op, operands, scheds[0],
+                                          dict(op_kwargs, device=dev))
+
+    def build(b: str) -> Plan:
+        return spec.sharded_planner(operands, tuple(scheds), b, device=dev,
+                                    part=part, shard_csrs=shard_csrs,
+                                    **op_kwargs)
+
+    with obs_trace.span("prep", f"plan_sharded:{op}", op=op,
+                        n_shards=n_parts):
+        p = resilience.guarded_build(
+            lambda: build(backend), op=op, schedule=scheds[0],
+            dense_run=dense_run, executor=executor)
+    if p.source != "guard-dense":
+        p.source = f"sharded-{strategy}"
+    resilience.guard_plan(p, rebuild=build, dense_run=dense_run,
+                          site="shard-dispatch", executor=executor)
+    p.shard_provenance = provenance
     return p
 
 

@@ -128,7 +128,8 @@ def array_key(arr: np.ndarray) -> str:
 
 def entry_nbytes(value: Any) -> int:
     """Bytes held by a cached value: the tensors (and numpy arrays) inside
-    it, walking dicts, sequences and ``SparseTensor.arrays``."""
+    it, walking dicts, sequences, ``SparseTensor.arrays`` and the shards
+    of a ``ShardedSparseTensor``."""
     if isinstance(value, torch.Tensor):
         return value.nelement() * value.element_size()
     if isinstance(value, np.ndarray):
@@ -137,6 +138,9 @@ def entry_nbytes(value: Any) -> int:
         return sum(entry_nbytes(v) for v in value.values())
     if isinstance(value, (list, tuple)):
         return sum(entry_nbytes(v) for v in value)
+    shards = getattr(value, "shards", None)
+    if isinstance(shards, tuple):
+        return entry_nbytes(shards)
     arrays = getattr(value, "arrays", None)
     return entry_nbytes(arrays) if isinstance(arrays, dict) else 0
 

@@ -50,9 +50,10 @@ class OpSpec:
     # member against this BEFORE the stacked build, so a mixed bucket fails
     # with a per-member error instead of deep inside the planner.
     bucket_layouts: Optional[Callable] = None
-    # Distributed plan path (DESIGN.md §10): turns (operands, per-shard
+    # Sharded plan path (DESIGN.md §10): turns (operands, per-shard
     # schedules, backend) plus the row partition into a Plan that executes
-    # one shard per mesh slot. Ops without one reject plan_sharded().
+    # one prepared shard per row range. Ops without one reject
+    # plan_sharded().
     sharded_planner: Optional[Callable] = None
     # Whether the (bucket/sharded) planner can receive the serving-path
     # ``store=`` / ``operand_key=`` kwargs; computed at registration so

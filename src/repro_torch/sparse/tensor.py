@@ -21,12 +21,16 @@ container stays on the instance for characterization and ``to_host``.
 Mutation (``sparse.mutate``): ``from_csr(..., slack=)`` reserves free
 slots or cells per row and a pool of spare zero blocks, and
 ``apply_delta`` writes a delta into the device tensors in place, bumping
-``generation``. ``ShardedSparseTensor`` comes with a later slice.
+``generation``.
+
+``ShardedSparseTensor`` is a row-partitioned operand: one prepared
+``SparseTensor`` per shard, each under its own ``Schedule``
+(``repro_torch.sparse.plan_sharded`` plans it).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -308,6 +312,23 @@ class SparseTensor:
             return cls.from_csr(obj, schedule=schedule, device=device)
         return cls.from_layout(obj, schedule=schedule, device=device)
 
+    def to(self, device) -> "SparseTensor":
+        """This container with its tensors on ``device`` (``self`` when
+        they are there already): the same meta, host container, zero block,
+        live cells, generation and spare blocks."""
+        dev = resolve_device(device)
+        if self.device == dev:
+            return self
+        st = SparseTensor(self.meta, {k: v.to(dev)
+                                      for k, v in self.arrays.items()},
+                          host=self._host)
+        st.true_shape = self.true_shape
+        st._zero_idx = self._zero_idx
+        st._live_cells = self._live_cells
+        st.generation = self.generation
+        st.spare_blocks = list(self.spare_blocks)
+        return st
+
     # ----------------------------------------------------------- mutation
     def apply_delta(self, delta) -> "SparseTensor":
         """Apply a ``sparse.mutate.Delta`` to this prepared container in
@@ -419,3 +440,97 @@ def pad_container_to_bucket(container: HostLayout) -> HostLayout:
     out = np.zeros((r_p, c_p), np.float32)
     out[:r, :c] = dense
     return out
+
+
+# ------------------------------------------------------- sharded container
+
+@dataclasses.dataclass(frozen=True)
+class ShardedMeta:
+    """Static facts of a ``ShardedSparseTensor``: the global shape, the
+    contiguous row bounds (shard ``i`` owns rows ``[bounds[i],
+    bounds[i+1])``) and the partition strategy."""
+
+    shape: Tuple[int, int]
+    bounds: Tuple[int, ...]
+    strategy: str = "nnz"
+
+
+class ShardedSparseTensor:
+    """Row-partitioned sparse operand: one prepared ``SparseTensor`` per
+    shard, each with its own schedule.
+
+    Shards may carry different schedules: the per-shard selector path
+    resolves each shard's layout and block size from its own fingerprint,
+    which is the point of sharding a skewed matrix. A plain class (the JAX
+    package's is a pytree): PyTorch has no tracing to carry it through.
+    """
+
+    def __init__(self, meta: ShardedMeta, shards) -> None:
+        shards = tuple(shards)
+        if len(shards) != len(meta.bounds) - 1:
+            raise ValueError(f"{len(shards)} shards for "
+                             f"{len(meta.bounds) - 1} row ranges")
+        self.meta = meta
+        self.shards = shards
+
+    # ------------------------------------------------------------- basics
+    @property
+    def n_shards(self) -> int:
+        return len(self.shards)
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return self.meta.shape
+
+    @property
+    def bounds(self) -> Tuple[int, ...]:
+        return self.meta.bounds
+
+    def shard_rows(self) -> Tuple[int, ...]:
+        b = self.meta.bounds
+        return tuple(b[i + 1] - b[i] for i in range(self.n_shards))
+
+    def schedules(self) -> Tuple[Optional[Schedule], ...]:
+        return tuple(s.meta.schedule for s in self.shards)
+
+    def __repr__(self) -> str:
+        return (f"ShardedSparseTensor(shape={self.meta.shape}, "
+                f"n_shards={self.n_shards}, strategy={self.meta.strategy!r})")
+
+    def to(self, device) -> "ShardedSparseTensor":
+        """Every shard on ``device`` (a shard already there is kept)."""
+        return ShardedSparseTensor(self.meta,
+                                   [st.to(device) for st in self.shards])
+
+    # ------------------------------------------------------- construction
+    @classmethod
+    def from_csr(cls, csr: CSR, n_shards: int, schedules=None, *,
+                 strategy: str = "nnz", shape_bucket: bool = True,
+                 sigma: int = SELL_SIGMA,
+                 device="cuda") -> "ShardedSparseTensor":
+        """Partition ``csr``'s rows (nnz-balanced by default) and prepare
+        each shard under its own Schedule on ``device`` (the card unless
+        ``device="cpu"``).
+
+        ``schedules`` is one Schedule for every shard, a per-shard
+        sequence, or None (the matvec default per shard). Partition caching,
+        selector-resolved per-shard schedules and the launch live in
+        ``repro_torch.sparse.plan_sharded``; this constructor is the
+        standalone container build.
+        """
+        from .partition import partition_rows
+        dev = resolve_device(device)
+        part = partition_rows(csr, n_shards, strategy)
+        if schedules is None or isinstance(schedules, Schedule):
+            schedules = [schedules] * part.n_parts
+        schedules: Sequence = list(schedules)
+        if len(schedules) != part.n_parts:
+            raise ValueError(f"{len(schedules)} schedules for "
+                             f"{part.n_parts} shards")
+        shards = [SparseTensor.from_csr(shard, schedule=s, sigma=sigma,
+                                        shape_bucket=shape_bucket,
+                                        device=dev)
+                  for shard, s in zip(part.slice(csr), schedules)]
+        meta = ShardedMeta((int(csr.shape[0]), int(csr.shape[1])),
+                           part.bounds, strategy)
+        return cls(meta, shards)

@@ -4,8 +4,10 @@ PyTorch version on the same inputs, over the block sizes the kernels take
 plan paths (spmv, spgemm, spadd) end to end against float64 references;
 the grouped GEMM over tile_m 32-256 and the attention kernel over head
 dims 32-256, float32 and bfloat16, with ragged edges, the MoE decode
-loop and flash plan on the card, and the ServingEngine on the card (its
-drains against a CPU engine's, its serving thread).
+loop and flash plan on the card, the ServingEngine on the card (its
+drains against a CPU engine's, its serving thread), sharded plans (one
+stacked launch; one stream per shard) and the LM's prefill and decode
+against the CPU port.
 
 Run on a machine with an NVIDIA GPU and nvcc:
 
@@ -1417,3 +1419,176 @@ def test_mutable_matrix_on_card(card, layout):
                          np.array([bc * 32 for _, bc in past]),
                          np.full(len(past), 2.0, np.float32)))
     assert y() is not st and mm.epoch_swaps == 1
+
+
+# ------------------------------------------------------------- sharded plans
+
+SHARD_SCHEDS = [Schedule("bsr", 32, 1.0),
+                Schedule("bsr", 16, 1.0, layout="sell", slice_height=4),
+                Schedule("bsr", 64, 1.0),
+                Schedule("bsr", 32, 1.0, layout="sell", slice_height=8)]
+
+
+@pytest.mark.parametrize("op", ["spmv", "spmm"])
+def test_sharded_heterogeneous_plan_on_card_through_streams(card, op):
+    """Four shards under four schedules: one launch per shard, each on its
+    own CUDA stream, joined on the caller's; the result equals the CPU
+    plan's (the plain versions) and the float64 oracle."""
+    from repro_torch.sparse import plan_sharded
+    A = gen_zipf(2048, seed=2, a=1.6)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((A.shape[1], 8) if op == "spmm"
+                            else A.shape[1]).astype(np.float32)
+    K.reset_launch_counts()
+    reset_counters()
+    p = plan_sharded(op, (A,), n_shards=4, schedules=SHARD_SCHEDS,
+                     device=card)
+    y = p.execute(x).cpu().numpy()
+    assert launch_count(op) == 1 and p.schedule is None
+    kernel = "bsr_spmm" if op == "spmm" else "bsr_spmv"
+    assert K.LAUNCHES[f"{kernel}_ell"] == 2
+    assert K.LAUNCHES[f"{kernel}_sell"] == 2
+    y_cpu = plan_sharded(op, (A,), n_shards=4, schedules=SHARD_SCHEDS,
+                         device="cpu").execute(x).numpy()
+    np.testing.assert_allclose(y, y_cpu, rtol=1e-4,
+                               atol=1e-4 * np.abs(y_cpu).max())
+    ref = A.to_dense().astype(np.float64) @ x
+    np.testing.assert_allclose(y, ref, rtol=1e-4,
+                               atol=1e-4 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("layout", ["ell", "sell"])
+def test_sharded_uniform_plan_is_one_launch_on_card(card, layout):
+    from repro_torch.sparse import plan_sharded
+    A = gen_zipf(2048, seed=2, a=1.6)
+    s = (Schedule("bsr", 32, 1.0, layout="sell", slice_height=8)
+         if layout == "sell" else Schedule("bsr", 32, 1.0))
+    x = np.random.default_rng(1).standard_normal(A.shape[1]).astype(
+        np.float32)
+    store = PreparedStore()
+    p = plan_sharded("spmv", (A,), n_shards=4, schedule=s, store=store,
+                     device=card)
+    K.reset_launch_counts()
+    reset_counters()
+    y = p.execute(x).cpu().numpy()
+    assert launch_count("spmv") == 1
+    assert K.LAUNCHES[f"bsr_spmv_{layout}"] == 1
+    assert sum(K.LAUNCHES.values()) == 1
+    single = plan("spmv", (A,), schedule=s, device=card).execute(x)
+    np.testing.assert_allclose(y, single.cpu().numpy(), rtol=1e-4,
+                               atol=1e-4 * np.abs(y).max())
+    np.testing.assert_allclose(y, spmv_oracle(A, x), rtol=1e-4,
+                               atol=1e-4 * np.abs(y).max())
+
+
+@pytest.mark.parametrize("layout", ["ell", "sell"])
+@pytest.mark.parametrize("multi", [False, True])
+def test_stacked_kernels_read_one_shared_x(card, layout, multi):
+    """Row shards stacked as members read one x expanded over the member
+    axis (stride 0, no copy per member): the launch equals the launch on a
+    materialized copy bit for bit, and the plain version."""
+    from repro_torch.sparse import partition_rows
+    A = gen_zipf(2048, seed=2, a=1.6)
+    s = (Schedule("bsr", 32, 1.0, layout="sell", slice_height=8)
+         if layout == "sell" else Schedule("bsr", 32, 1.0))
+    part = partition_rows(A, 4, "nnz")
+    built = ops_builtin._build_matvec_bucket(
+        part.slice(A), s, ops_builtin.SELL_SIGMA, True, card)
+    width = built["width"]
+    g = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn((width, 8) if multi else (width,), generator=g,
+                    device=card)
+    xb = x.reshape((width // 32, 32) + tuple(x.shape[1:]))
+    shared = xb.unsqueeze(0).expand(4, *xb.shape)
+    assert shared.stride(0) == 0
+    name = f"bsr_{'spmm' if multi else 'spmv'}_{layout}"
+    before = K.LAUNCHES[name]
+    y = ops_builtin._run_layout(built["arrays"], layout, shared, "cuda")
+    y_copy = ops_builtin._run_layout(built["arrays"], layout,
+                                     shared.contiguous(), "cuda")
+    assert K.LAUNCHES[name] == before + 2
+    assert torch.equal(y, y_copy)
+    plain = ops_builtin._run_layout(built["arrays"], layout, shared, "plain")
+    torch.testing.assert_close(y, plain, rtol=1e-4,
+                               atol=1e-4 * float(plain.abs().max()))
+
+
+def test_sharded_prepared_tensor_plans_from_its_shards(card):
+    """A prepared ShardedSparseTensor under one schedule launches from the
+    shards it holds on the card, one per shard: no stack (a second device
+    copy) is built or stored."""
+    from repro_torch.sparse import ShardedSparseTensor, plan_sharded
+    A = gen_zipf(2048, seed=2, a=1.6)
+    s = Schedule("bsr", 32, 1.0)
+    sst = ShardedSparseTensor.from_csr(A, 4, s, device=card)
+    store = PreparedStore()
+    p = plan_sharded("spmv", (sst,), store=store, device=card)
+    assert p.schedule == s and p.operands[0] is sst
+    assert not any(k[0] == "matvec_shards_stacked" for k in store._entries)
+    x = np.random.default_rng(1).standard_normal(A.shape[1]).astype(
+        np.float32)
+    K.reset_launch_counts()
+    y = p.execute(x).cpu().numpy()
+    assert K.LAUNCHES["bsr_spmv_ell"] == 4
+    np.testing.assert_allclose(y, spmv_oracle(A, x), rtol=1e-4,
+                               atol=1e-4 * np.abs(y).max())
+
+
+@pytest.mark.parametrize("op", ["spmv", "spmm"])
+def test_sharded_plan_round_robin_over_cards(card, op):
+    """Heterogeneous shards placed round-robin over every card: x reaches
+    the other cards and the outputs come back by device-to-device copies,
+    and the result equals the CPU plan's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    from repro_torch.sparse import plan_sharded
+    A = gen_zipf(2048, seed=2, a=1.6)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((A.shape[1], 8) if op == "spmm"
+                            else A.shape[1]).astype(np.float32)
+    p = plan_sharded(op, (A,), n_shards=4, schedules=SHARD_SCHEDS,
+                     device=card)
+    cards = {st.arrays["blocks"].device for st in p.operands[0].shards}
+    assert len(cards) == min(4, torch.cuda.device_count())
+    y = p.execute(x)
+    assert y.device == card
+    y_cpu = plan_sharded(op, (A,), n_shards=4, schedules=SHARD_SCHEDS,
+                         device="cpu").execute(x).numpy()
+    np.testing.assert_allclose(y.cpu().numpy(), y_cpu, rtol=1e-4,
+                               atol=1e-4 * np.abs(y_cpu).max())
+
+
+# ------------------------------------------------------------------ the LM
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "gemma2-9b",
+                                  "mixtral-8x22b"])
+def test_lm_prefill_and_decode_on_card_equal_the_cpu_port(card, arch):
+    """A reduced config's weights drawn once on the CPU and copied to the
+    card: prefill logits, the cache and three greedy decode steps equal
+    the CPU port's at float32 compute (full fp32 matmuls on both)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              compute_dtype="float32")
+    cpu = Model(cfg, device="cpu").init(seed=3)
+    gpu = Model(cfg, device=card)
+    gpu.load_state_dict(cpu.state_dict())
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        1, cfg.vocab_size, (2, 64)))
+    lc, cc = cpu.prefill({"tokens": toks}, attn_chunk=32, cache_len=70)
+    lg, cg = gpu.prefill({"tokens": toks}, attn_chunk=32, cache_len=70)
+
+    def close(a, b):
+        a, b = a.float().cpu(), b.float()
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+    close(lg, lc)
+    for c_g, c_c in zip(cg, cc):
+        close(c_g["self"]["k"], c_c["self"]["k"])
+    tok = torch.argmax(lc, -1)
+    for step in range(3):
+        lc, cc = cpu.decode(cc, tok, 64 + step)
+        lg, cg = gpu.decode(cg, tok.to(card), 64 + step)
+        close(lg, lc)
+        tok = torch.argmax(lc, -1)

@@ -251,8 +251,12 @@ def test_service_state_round_trips_like_jax(tuners):
     fresh.restore_state(json.loads(json.dumps(state)))
     assert fresh.export_state() == state
     assert fresh.refit(min_examples=1)["refit"] == 1.0
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        svc.select_shards([held[0][2]])
+    decs = svc.select_shards([held[0][2]])
+    jdecs = jsvc.select_shards([jheld[0][2]])
+    assert [dataclasses.asdict(d.schedule) for d in decs] == \
+        [dataclasses.asdict(d.schedule) for d in jdecs]
+    for key in ("shard_requests", "sharded_plans"):
+        assert svc.telemetry()[key] == jsvc.telemetry()[key] == 1
 
 
 @pytest.mark.parametrize("writer", ["port", "jax"])
