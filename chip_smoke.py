@@ -6,10 +6,12 @@ continuous-batching ``ServingEngine`` under Zipf trace replays (with its
 journal, checkpoints and crash restarts), the characterization loop and
 its calibration report, mutable matrices between solves, sharded SpMV/SpMM
 with per-shard selection, the MoE decode loop, an MoE prefill and prefill
-attention at mixtral-8x22b width, and the LM substrate's serving path
-(llama3.2-3b at full size, mixtral-8x22b at full width), all under the
-guard (``GuardedExecutor``), and holds every kernel against its plain
-PyTorch version (and the sparse ones against a float64 CSR oracle).
+attention at mixtral-8x22b width, the LM substrate's serving path
+(llama3.2-3b at full size, mixtral-8x22b at full width), its training step
+(llama3.2-3b at full size) and its ssm, hybrid, audio and vlm families,
+all under the guard (``GuardedExecutor``), and holds every kernel against
+its plain PyTorch version (and the sparse ones against a float64 CSR
+oracle).
 
     python3 chip_smoke.py            # needs one CUDA card; ~11-13 min
 
@@ -179,6 +181,43 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      ``repro_torch.examples.serve_lm.main`` on the card (a reduced
      mixtral served, 16 ``decode_moe_ticks``, ``decode_multirhs_ticks``:
      32 SpMV launches against 8 SpMM launches, counted by the kernels);
+  6c. train phase, ``{"train": ...}`` lines: llama3.2-3b at full width and
+     depth (3.2 B float32 parameters drawn on the card): before the
+     optimizer exists, the loss and global grad norm of step 0's batch (4 x
+     512 tokens) three ways, the full batch, 2 microbatches and remat
+     ``"none"`` against ``"dots_no_batch"``, each within 1e-2 relative of
+     the full batch's (bf16 compute); then ``launch.train.main(..., model=)``
+     for 6 steps (2 microbatches, ``dots_no_batch``, attention chunk 256,
+     warmup 2, lr 3e-4, no checkpoint written: 51 GB): every loss and grad
+     norm finite, each step run once with no restart (as in every
+     ``launch.train`` run below without ``--simulate-failures``),
+     ``step_ms``, ``tok_s``, ``mfu`` (``model_flops`` of the
+     4 x 512 train shape over the step time over 989.4 TFLOP/s dense bf16)
+     and peak memory; one more step split into its forwards, backwards and
+     optimizer (each ended by a synchronize), and the ``device_profile`` of
+     one more (busy share, top kernels); then the reference's two failing
+     system tests' argvs on the card: a reduced llama3.2-3b loses more than
+     0.5 in 40 steps, and a reduced mamba2-780m with ``--simulate-failures``
+     (failures at steps 4 and 8) ends at step 12 after 2 restarts, with
+     checkpoints every 4 steps (the reference's argv: each restore lands
+     on the step that failed) and every 3 (the restores re-run steps 3 and
+     6-7), each loss within 1e-5 relative of an uninterrupted run's at its
+     step;
+  6d. families phase, ``{"families": ...}`` lines: mamba2-780m (full size;
+     8 requests of 512 + 32 tokens through ``launch.serve``, then 3 train
+     steps of 4 x 512), recurrentgemma-9b (full width, one (rglru, rglru,
+     local_attn) group of 12; a 4 x 512 prefill and 16 decode steps, then 2
+     train steps of 4 x 512), whisper-large-v3 (full size, 1500 stub frames
+     padded to 1536; 4 requests of 64 + 32 tokens through ``launch.serve``,
+     then 2 train steps of 4 x 256) and qwen2-vl-72b (full width, 1 of 80
+     layers; a 4 x 512 prefill and 16 decode steps): each the decode-
+     versus-forward check (the last decode step's logits within
+     ``3e-2 * max|logits|`` of a full forward's at that position), finite
+     train losses and grad norms, step ms, ``mfu`` and peak memory; for
+     mamba2 also one SSD chunk at full size through the reference's
+     ``where(tri, exp(li), 0)`` and the port's masked decay: the port's
+     values and gradients finite and its values within 1e-4 relative of
+     the reference form's;
   7. per kernel x input, at the main path's shapes: the kernel against its
      plain version over the whole output (spgemm, moe and flash within
      ``1e-4 * max|plain|``, spadd bit for bit), the kernel's median time
@@ -320,6 +359,58 @@ LM_SERVE = {"arch": "llama3.2-3b", "requests": 8, "batch": 4, "prompt": 512,
             "gen": 32, "chunk": 128}
 LM_MOE = {"arch": "mixtral-8x22b", "layers": 2, "batch": 4, "prompt": 512,
           "decode": 16, "chunk": 128}
+# the train phase: llama3.2-3b at full width and depth (3.2 B float32
+# parameters, grads, m and v: 51.4 GB), 6 steps of 4 x 512 tokens in 2
+# microbatches; then the reference's two system tests' argvs (reduced)
+TRAIN_FULL = {"arch": "llama3.2-3b", "batch": 4, "seq": 512,
+              "microbatches": 2, "remat": "dots_no_batch", "chunk": 256,
+              "steps": 6, "warmup": 2, "lr": 3e-4}
+TRAIN_LOSS = {"arch": "llama3.2-3b", "batch": 8, "seq": 64, "steps": 40,
+              "lr": 3e-3, "warmup": 10, "chunk": 32, "remat": "none"}
+TRAIN_RESTART = {"arch": "mamba2-780m", "batch": 4, "seq": 64, "steps": 12,
+                 "lr": 3e-4, "warmup": 10, "chunk": 32, "remat": "none",
+                 "save_every": 4}
+TRAIN_AGREE = 1e-2                 # bf16 compute, summed in other orders
+TRAIN_REPLAY = 1e-5                # index_add_ backward orders its atomics
+# the steps run with failures at 4 and 8, by checkpoint interval: every 4
+# restores the step that failed, every 3 re-runs steps 3 and 6-7
+TRAIN_RESTART_STEPS = {4: list(range(12)),
+                       3: [0, 1, 2, 3, 3, 4, 5, 6, 7, 6, 7, 8, 9, 10, 11]}
+TRAIN_DIR = Path(__file__).resolve().parent / "build" / "train_smoke"
+BF16_FLOP_PER_S = 989.4e12         # H100 SXM dense bf16 tensor cores
+# the families phase: the ssm, hybrid, audio and vlm configs at full width
+# (recurrentgemma-9b cut to one (rglru, rglru, local_attn) group,
+# qwen2-vl-72b to 1 of 80 layers: 80 would need about 290 GB in float32)
+FAMILIES = {
+    # at bf16 the decode-versus-forward error grows with depth in both
+    # packages: at 48 layers the reference's is 4.71e-2 (the port's
+    # 4.08e-2; tools/lm_bf16_depth.py on the CPU), past the 3e-2 that
+    # holds at the other configs' depths, so mamba2's bf16 bound is 6e-2;
+    # its float32 check holds to 1e-4 like every config's
+    "mamba2-780m": {"bf16_tol": 6e-2,
+                    "serve": {"requests": 8, "batch": 4, "prompt": 512,
+                              "gen": 32, "chunk": 256},
+                    "train": {"batch": 4, "seq": 512, "steps": 3,
+                              "lr": 3e-4, "warmup": 1, "chunk": 256,
+                              "remat": "dots_no_batch"}},
+    "recurrentgemma-9b": {"layers": 3,
+                          "serve": {"batch": 4, "prompt": 512, "gen": 17,
+                                    "chunk": 256},
+                          "train": {"batch": 4, "seq": 512, "steps": 2,
+                                    "lr": 3e-4, "warmup": 1, "chunk": 256,
+                                    "remat": "dots_no_batch"}},
+    # chunk 256: the encoder's 1536 frames in 6 chunks (64-frame chunks
+    # make 16 times the chunk steps, each a few host-dispatched kernels);
+    # the decoder's 64-token prompt is one chunk either way
+    "whisper-large-v3": {"serve": {"requests": 4, "batch": 4, "prompt": 64,
+                                   "gen": 32, "chunk": 256},
+                         "train": {"batch": 4, "seq": 256, "steps": 2,
+                                   "lr": 3e-4, "warmup": 1, "chunk": 256,
+                                   "remat": "dots_no_batch"}},
+    "qwen2-vl-72b": {"layers": 1,
+                     "serve": {"batch": 4, "prompt": 512, "gen": 17,
+                               "chunk": 256}},
+}
 # the card's name and power limit, printed beside every time of the new
 # phases (main sets it; a CPU rehearsal has no card)
 CARD = "no card"
@@ -367,6 +458,19 @@ def sync(device: str) -> None:
     import torch
     if device == "cuda":
         torch.cuda.synchronize()
+
+
+def peak_reset(device: str) -> None:
+    import torch
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak(device: str):
+    """The card's peak allocated bytes since ``peak_reset`` (None off
+    the card)."""
+    import torch
+    return torch.cuda.max_memory_allocated() if device == "cuda" else None
 
 
 def card_line() -> str:
@@ -1944,14 +2048,6 @@ def run_lm(device: str, seed: int) -> dict:
     from repro_torch.models import Model, count_params
     from repro_torch.models import transformer as tfm
 
-    def peak_reset():
-        if device == "cuda":
-            torch.cuda.reset_peak_memory_stats()
-
-    def peak():
-        return torch.cuda.max_memory_allocated() if device == "cuda" \
-            else None
-
     # llama3.2-3b at full width and depth through the serve CLI
     d = LM_SERVE
     cfg = get_config(d["arch"])
@@ -1959,14 +2055,14 @@ def run_lm(device: str, seed: int) -> dict:
     model = Model(cfg, device=device).init(seed=seed)
     sync(device)
     init_s = time.monotonic() - t0
-    peak_reset()
+    peak_reset(device)
     with contextlib.redirect_stdout(sys.stderr):
         res = serve.main(["--arch", d["arch"], "--requests",
                           str(d["requests"]), "--batch", str(d["batch"]),
                           "--prompt-len", str(d["prompt"]), "--gen-len",
                           str(d["gen"]), "--attn-chunk", str(d["chunk"]),
                           "--device", device], model=model)
-    serve_peak = peak()
+    serve_peak = peak(device)
     outs = np.concatenate(res["outputs"])
     check(outs.shape == (d["requests"], d["gen"]) and (outs >= 0).all()
           and (outs < cfg.vocab_padded).all(), "lm serve: token shapes")
@@ -2018,7 +2114,7 @@ def run_lm(device: str, seed: int) -> dict:
     toks = torch.as_tensor(np.random.default_rng(seed + 1).integers(
         1, cfg.vocab_size, (d["batch"], d["prompt"])), device=device)
     max_len = d["prompt"] + d["decode"]
-    peak_reset()
+    peak_reset(device)
     t0 = time.monotonic()
     with torch.no_grad():
         x = tfm.embed_tokens(cfg, model, toks)
@@ -2054,7 +2150,7 @@ def run_lm(device: str, seed: int) -> dict:
                  "decode_steps": d["decode"], "prefill_ms": prefill_ms,
                  "decode_ms_per_token": decode_ms,
                  **{k: float(v) / cfg.n_layers for k, v in aux.items()},
-                 "max_memory_allocated": peak(), "card": CARD}})
+                 "max_memory_allocated": peak(device), "card": CARD}})
     del model, cache, logits, x, h
     gc.collect()
     if device == "cuda":
@@ -2083,6 +2179,433 @@ def run_lm(device: str, seed: int) -> dict:
           f"{mr['spmm_launches']}, kernels {launches}")
     return launches
 
+
+# ------------------------------------------------------- train, families
+
+def train_batch(cfg, batch: int, seq: int, step: int, device: str) -> dict:
+    """``launch.train``'s batch of ``step`` on ``device``."""
+    import torch
+    from repro_torch.data import SyntheticLMDataset
+    b = SyntheticLMDataset(cfg.vocab_size, seq, batch).global_batch_at(step)
+    out = {"tokens": torch.as_tensor(b["tokens"].astype(np.int64),
+                                     device=device),
+           "loss_mask": torch.as_tensor(b["loss_mask"], device=device)}
+    if cfg.is_encdec:
+        out["audio_embed"] = torch.as_tensor(
+            np.random.default_rng(step).standard_normal(
+                (batch, cfg.encoder_len, cfg.d_model)).astype(np.float32),
+            device=device).to(torch.bfloat16)
+    return out
+
+
+def loss_and_grad_norm(model, batch: dict, remat: str, microbatches: int,
+                       chunk: int):
+    """(loss, global grad norm) of ``batch`` from the model's current
+    weights, as ``make_train_step`` computes them before the optimizer:
+    per microbatch a forward and a backward, the grads summed and scaled
+    by 1/microbatches. Leaves no grads behind."""
+    import torch
+    model.zero_grad(set_to_none=True)
+    mb = batch["tokens"].shape[0] // microbatches
+    loss = 0.0
+    for i in range(microbatches):
+        sub = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+        l, _ = model.loss(sub, remat=remat, attn_chunk=chunk)
+        l.backward()
+        loss += float(l.detach()) / microbatches
+    sq = sum(torch.linalg.vector_norm(p.grad, dtype=torch.float32) ** 2
+             for p in model.parameters() if p.grad is not None)
+    gnorm = float(torch.sqrt(sq)) / microbatches
+    model.zero_grad(set_to_none=True)
+    return loss, gnorm
+
+
+def step_split(step, model, optimizer, batch: dict, device: str) -> dict:
+    """One call of ``step`` (``make_train_step`` of ``model`` and
+    ``optimizer``) timed by phase through wrappers of ``model.loss`` and
+    ``optimizer.step``, each mark taken after a synchronize: the forwards
+    (inside ``loss``), the backwards (from a ``loss`` returning to the next
+    ``loss`` or ``step`` call, the 1/microbatches grad scaling included)
+    and the optimizer (inside ``step``), in ms."""
+    marks = []
+
+    def timed(fn, kind):
+        def wrapper(*args, **kwargs):
+            sync(device)
+            marks.append((kind, time.monotonic()))
+            out = fn(*args, **kwargs)
+            sync(device)
+            marks.append(("end", time.monotonic()))
+            return out
+        return wrapper
+
+    model.loss = timed(model.loss, "forward")
+    optimizer.step = timed(optimizer.step, "optimizer")
+    try:
+        step(batch)
+    finally:
+        del model.loss, optimizer.step
+    out = {"forward_ms": 0.0, "backward_ms": 0.0, "optimizer_ms": 0.0}
+    for (kind, t0), (_, t1) in zip(marks[::2], marks[1::2]):
+        out[kind + "_ms"] += (t1 - t0) * 1e3
+    for (_, t0), (_, t1) in zip(marks[1:-1:2], marks[2::2]):
+        out["backward_ms"] += (t1 - t0) * 1e3
+    return out
+
+
+def train_argv(arch: str, d: dict, ckpt: Path, device: str,
+               reduced: bool = False) -> list:
+    argv = ["--arch", arch, "--steps", str(d["steps"]), "--batch",
+            str(d["batch"]), "--seq", str(d["seq"]), "--lr", str(d["lr"]),
+            "--warmup", str(d["warmup"]), "--attn-chunk", str(d["chunk"]),
+            "--remat", d["remat"], "--microbatches",
+            str(d.get("microbatches", 1)), "--save-every",
+            str(d.get("save_every", d["steps"] + 100)), "--ckpt-dir",
+            str(ckpt), "--device", device]
+    return argv + (["--reduced"] if reduced else [])
+
+
+def check_uninterrupted(res: dict, steps: int, what: str) -> None:
+    """A ``launch.train.main`` run without ``--simulate-failures`` took
+    every step once, with no restart (its supervisor restores after a
+    ``RuntimeError``, as a fault on the card is raised), and its losses
+    and grad norms are finite."""
+    check(res["restarts"] == 0 and res["final_step"] == steps
+          and res["loss_steps"] == list(range(steps))
+          and np.isfinite(res["losses"]).all()
+          and np.isfinite(res["grad_norms"]).all(),
+          f"{what}: {steps} finite steps, each once, no restart "
+          f"({res['restarts']} restarts, steps {res['loss_steps']})")
+
+
+def mfu(cfg, model, batch: int, seq: int, step_ms: float) -> float:
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.roofline import model_flops
+    flops = model_flops(cfg, ShapeConfig("train", seq, batch, "train"),
+                        model)
+    return flops / (step_ms / 1e3) / BF16_FLOP_PER_S
+
+
+def run_train(device: str, seed: int) -> None:
+    """The train phase (``{"train": ...}`` lines): llama3.2-3b at full
+    width and depth (its loss and grad norm three ways before the
+    optimizer exists, then ``launch.train.main`` for TRAIN_FULL's steps,
+    a step split into forward / backward / optimizer and its device
+    profile), the reference's loss property (a reduced llama loses 0.5 in
+    40 steps) and its restart path (a reduced mamba2 ends at step 12 after
+    2 restarts, every loss equal to an uninterrupted run's)."""
+    import contextlib
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import Model, count_params
+    from repro_torch.train import make_train_step
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    d = TRAIN_FULL
+    cfg = get_config(d["arch"])
+    model = Model(cfg, device=device).init(seed=seed)
+    batch = train_batch(cfg, d["batch"], d["seq"], 0, device)
+    ways = {"full": loss_and_grad_norm(model, batch, d["remat"], 1,
+                                       d["chunk"]),
+            "microbatches_2": loss_and_grad_norm(model, batch, d["remat"], 2,
+                                                d["chunk"]),
+            "remat_none": loss_and_grad_norm(model, batch, "none", 1,
+                                             d["chunk"])}
+    full = ways["full"]
+    agree = {k: (abs(v[0] - full[0]) / abs(full[0]),
+                 abs(v[1] - full[1]) / abs(full[1]))
+             for k, v in ways.items() if k != "full"}
+    emit({"train": {"arch": d["arch"], "before_optimizer": {
+        k: {"loss": v[0], "grad_norm": v[1]} for k, v in ways.items()},
+        "rel_diff_to_full": agree, "card": CARD}})
+    check(all(np.isfinite(v).all() for v in ways.values())
+          and all(max(a) < TRAIN_AGREE for a in agree.values()),
+          f"train: full batch, 2 microbatches and remat none agree within "
+          f"{TRAIN_AGREE}: {agree}")
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    peak_reset(device)
+    with contextlib.redirect_stdout(sys.stderr):
+        res = train.main(train_argv(d["arch"], d, TRAIN_DIR / "full",
+                                    device), model=model)
+    train_peak = peak(device)
+    check_uninterrupted(res, d["steps"], f"train {d['arch']}")
+    opt = res["optimizer"]
+    step = make_train_step(model, opt, remat=d["remat"],
+                           attn_chunk=d["chunk"],
+                           microbatches=d["microbatches"])
+    split = step_split(step, model, opt,
+                       train_batch(cfg, d["batch"], d["seq"], d["steps"],
+                                   device), device)
+    prof_batch = train_batch(cfg, d["batch"], d["seq"], d["steps"] + 1,
+                             device)
+    prof = device_profile(lambda: step(prof_batch), device)
+    emit({"train": {"arch": d["arch"], "params": count_params(model),
+                    "layers": cfg.n_layers, "d_model": cfg.d_model,
+                    **{k: d[k] for k in ("batch", "seq", "microbatches",
+                                         "remat", "chunk", "steps", "lr",
+                                         "warmup")},
+                    "losses": res["losses"], "grad_norms": res["grad_norms"],
+                    "step_ms": res["step_ms"], "tok_s": res["tok_s"],
+                    "mfu": mfu(cfg, model, d["batch"], d["seq"],
+                               res["step_ms"]),
+                    "split": split, "max_memory_allocated": train_peak,
+                    "card": CARD}})
+    emit({"train": {"arch": d["arch"], "profile": prof, "card": CARD}})
+    del model, opt, res, step, batch, prof_batch
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # the reference's loss property (test_training_loss_decreases)
+    d = TRAIN_LOSS
+    with contextlib.redirect_stdout(sys.stderr):
+        res = train.main(train_argv(d["arch"], d, TRAIN_DIR / "loss",
+                                    device, reduced=True))
+    check_uninterrupted(res, d["steps"], f"train reduced {d['arch']}")
+    losses = res["losses"]
+    emit({"train": {"arch": d["arch"], "reduced": True, "steps": d["steps"],
+                    "loss_first": losses[0], "loss_last": losses[-1],
+                    "step_ms": res["step_ms"], "card": CARD}})
+    check(losses[-1] < losses[0] - 0.5,
+          f"train reduced {d['arch']}: loss {losses[0]:.3f} -> "
+          f"{losses[-1]:.3f} drops by more than 0.5")
+
+    # the restart path: test_training_restart_path's argv (checkpoints
+    # every 4 steps, so each restore lands on the step that failed), then
+    # checkpoints every 3 steps, so the restores re-run steps 3 and 6-7;
+    # every loss against an uninterrupted run's
+    d = TRAIN_RESTART
+    with contextlib.redirect_stdout(sys.stderr):
+        clean = train.main(train_argv(d["arch"], d, TRAIN_DIR / "clean",
+                                      device, reduced=True))
+        runs = {every: train.main(
+            train_argv(d["arch"], {**d, "save_every": every},
+                       TRAIN_DIR / f"restart_{every}", device, reduced=True)
+            + ["--simulate-failures"]) for every in (d["save_every"], 3)}
+    check_uninterrupted(clean, d["steps"], f"train restart {d['arch']}")
+    for every, res in runs.items():
+        replay = max(abs(loss - clean["losses"][s]) / abs(clean["losses"][s])
+                     for s, loss in zip(res["loss_steps"], res["losses"]))
+        emit({"train": {"arch": d["arch"], "reduced": True,
+                        "save_every": every,
+                        "final_step": res["final_step"],
+                        "restarts": res["restarts"],
+                        "loss_steps": res["loss_steps"],
+                        "rel_diff_to_uninterrupted": replay, "card": CARD}})
+        check(res["final_step"] == d["steps"] and res["restarts"] == 2
+              and res["loss_steps"] == TRAIN_RESTART_STEPS[every]
+              and replay < TRAIN_REPLAY,
+              f"train restart path, checkpoints every {every}: step "
+              f"{res['final_step']}, {res['restarts']} restarts, steps run "
+              f"{res['loss_steps']}, losses within {TRAIN_REPLAY} of an "
+              f"uninterrupted run's ({replay:.3e})")
+
+
+def logits_at_index(model, tokens, index: int, chunk: int, audio=None):
+    """float32 logits at ``index`` of a full forward (train mode, no
+    cache) over ``tokens``, padded at the end to a multiple of ``chunk``
+    (and of the SSD chunk): positions up to ``index`` see only what comes
+    before them."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    cfg = model.cfg
+    m = chunk
+    if "ssd" in cfg.layer_pattern:
+        m = m * cfg.ssm_chunk // np.gcd(m, cfg.ssm_chunk)
+    s = tokens.shape[1]
+    pad = -(-s // m) * m - s
+    if pad:
+        tokens = torch.cat([tokens, tokens[:, :pad]], dim=1)
+    batch = {"tokens": tokens}
+    if audio is not None:
+        batch["audio_embed"] = audio
+    with torch.no_grad():
+        x = tfm.embed_tokens(cfg, model, tokens)
+        enc, valid = tfm._cross(cfg, model, batch, chunk)
+        h, _, _ = tfm.apply_stack(cfg, model.blocks, x, mode="train",
+                                  cross_enc=enc, enc_valid=valid,
+                                  attn_chunk=chunk)
+        h = tfm.apply_norm(cfg, model.final_norm, h)
+        return tfm.logits_at(cfg, model, h[:, index:index + 1])[:, 0]
+
+
+def ssd_reference_form(device: str, seed: int) -> dict:
+    """One SSD chunk of mamba2-780m's full size (256 steps, 48 heads of 64,
+    state 128) at its initial decay (A = -1, dt = softplus(N(0, 1) - 1)):
+    gradients through the reference's ``where(tri, exp(li), 0)`` and
+    through the port's masked form, and their forward values."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    cfg = get_config("mamba2-780m")
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, h, p, n = cfg.ssm_chunk, cfg.ssm_heads, cfg.ssm_head_dim, \
+        cfg.ssm_state
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    x, bm, cm = draw(1, q, h, p), draw(1, q, n), draw(1, q, n)
+    da = -torch.nn.functional.softplus(draw(1, q, h) - 1.0)
+    h0 = torch.zeros(1, h, n, p, device=device)
+
+    def reference(h_prev, x_k, dt_k, b_k, c_k):
+        cum = torch.cumsum(dt_k, dim=1)
+        li = cum[:, :, None, :] - cum[:, None, :, :]
+        tri = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                    device=device))
+        l_mat = torch.where(tri[None, :, :, None], torch.exp(li), 0.0)
+        scores = torch.einsum("bin,bjn->bij", c_k, b_k)
+        u = x_k * (-dt_k)[..., None]
+        y = torch.einsum("bijh,bjhp->bihp", scores[..., None] * l_mat, u)
+        return y + torch.einsum("bin,bhnp,bih->bihp", c_k, h_prev,
+                                torch.exp(cum))
+
+    out = {"max_decay_sum": float(-da.sum(1).max())}
+    for name, fn in (("reference", reference),
+                     ("port", lambda *a: ssm._chunk_step(*a)[1])):
+        xr = x.clone().requires_grad_()
+        dr = da.clone().requires_grad_()
+        y = fn(h0, xr, dr, bm, cm)
+        y.sum().backward()
+        out[name] = {"finite_values": bool(torch.isfinite(y).all()),
+                     "finite_grads": bool(torch.isfinite(xr.grad).all()
+                                          and torch.isfinite(dr.grad).all())}
+        out[name + "_y"] = y.detach()
+    out["values_rel_diff"] = rel_err(out.pop("port_y").cpu().numpy(),
+                                     out.pop("reference_y").cpu().numpy())
+    return out
+
+
+def decode_vs_forward(model, s: dict, seed: int, device: str):
+    """Serve ``s`` with ``model`` (through ``launch.serve`` when ``s``
+    names requests, else one prefill of ``s["batch"] x s["prompt"]`` and
+    ``s["gen"] - 1`` greedy decode steps), then a full forward over the
+    last batch's prompt and generated tokens: (the last decode step's
+    logits' error relative to ``max|logits|`` of the forward's at that
+    position, the serving times)."""
+    import contextlib
+    import torch
+    from repro_torch.launch import serve
+    cfg = model.cfg
+    if s.get("requests"):
+        with contextlib.redirect_stdout(sys.stderr):
+            res = serve.main(["--arch", cfg.name, "--requests",
+                              str(s["requests"]), "--batch", str(s["batch"]),
+                              "--prompt-len", str(s["prompt"]), "--gen-len",
+                              str(s["gen"]), "--attn-chunk", str(s["chunk"]),
+                              "--device", device], model=model)
+        prompt = torch.as_tensor(res["prompts"][-1], device=device)
+        gen = torch.as_tensor(res["outputs"][-1], device=device)
+        audio = res["audio_embed"][-1] if cfg.is_encdec else None
+        last = res["last_logits"][:prompt.shape[0]]
+        times = {"requests": s["requests"], "tok_s": res["throughput_tok_s"],
+                 "prefill_ms": res["prefill_ms"],
+                 "decode_ms_per_token": res["decode_ms_per_token"]}
+    else:
+        prompt = torch.as_tensor(np.random.default_rng(seed).integers(
+            1, cfg.vocab_size, (s["batch"], s["prompt"])), device=device)
+        sync(device)
+        t0 = time.monotonic()
+        logits, cache = model.prefill({"tokens": prompt},
+                                      attn_chunk=s["chunk"],
+                                      cache_len=s["prompt"] + s["gen"])
+        tok = torch.argmax(logits, -1)
+        sync(device)
+        t1 = time.monotonic()
+        toks = [tok]
+        for j in range(s["gen"] - 1):
+            logits, cache = model.decode(cache, tok, s["prompt"] + j)
+            tok = torch.argmax(logits, -1)
+            toks.append(tok)
+        sync(device)
+        gen, audio, last = torch.stack(toks, 1), None, logits
+        times = {"prefill_ms": (t1 - t0) * 1e3,
+                 "decode_ms_per_token": (time.monotonic() - t1) * 1e3
+                 / max(s["gen"] - 1, 1)}
+    toks = torch.cat([prompt, gen[:, :-1]], dim=1)
+    fwd = logits_at_index(model, toks, toks.shape[1] - 1, s["chunk"], audio)
+    check(bool(torch.isfinite(last).all()),
+          f"{cfg.name}: finite decode logits")
+    return rel_err(last.float().cpu().numpy(),
+                   fwd.float().cpu().numpy()), times
+
+
+def run_families(device: str, seed: int) -> None:
+    """The families phase (``{"families": ...}`` lines): mamba2-780m and
+    whisper-large-v3 at full size served through ``launch.serve``,
+    recurrentgemma-9b (depth cut to one group) and qwen2-vl-72b (depth cut
+    to one layer) at full width prefilled and decoded; each with the
+    decode-versus-forward check on its last batch at the config's bf16
+    compute and again at float32 compute on the same weights; then train
+    steps through ``launch.train`` for all but qwen2-vl."""
+    import contextlib
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import Model, count_params
+
+    for i, (arch, d) in enumerate(FAMILIES.items()):
+        full_cfg = get_config(arch)
+        cfg = (dataclasses.replace(full_cfg, n_layers=d["layers"])
+               if d.get("layers") else full_cfg)
+        model = Model(cfg, device=device).init(seed=seed + i)
+        s = d["serve"]
+        peak_reset(device)
+        e, times = decode_vs_forward(model, s, seed + i, device)
+        rec = {"arch": arch, "family": cfg.family,
+               "params": count_params(model), "layers": cfg.n_layers,
+               "d_model": cfg.d_model,
+               "cut": (f"depth {full_cfg.n_layers} -> {cfg.n_layers}"
+                       if cfg.n_layers != full_cfg.n_layers else None),
+               **times, "batch": s["batch"], "prompt": s["prompt"],
+               "gen": s["gen"], "attn_chunk": s["chunk"],
+               "decode_vs_forward_rel_err": e,
+               "serve_max_memory_allocated": peak(device)}
+        # the same check at float32 compute on the same weights
+        m32 = Model(dataclasses.replace(cfg, compute_dtype="float32"),
+                    device=device)
+        m32.load_state_dict(model.state_dict())
+        rec["decode_vs_forward_rel_err_fp32"], _ = decode_vs_forward(
+            m32, s, seed + i, device)
+        del m32
+        check(rec["decode_vs_forward_rel_err_fp32"] < TOL
+              and e < d.get("bf16_tol", BF16_TOL),
+              f"families {arch}: decode vs forward {e:.3e} (bf16), "
+              f"{rec['decode_vs_forward_rel_err_fp32']:.3e} (fp32)")
+        t = d.get("train")
+        if t:
+            gc.collect()
+            peak_reset(device)
+            with contextlib.redirect_stdout(sys.stderr):
+                tr = train.main(train_argv(arch, t, TRAIN_DIR / arch,
+                                           device), model=model)
+            check_uninterrupted(tr, t["steps"], f"families {arch}")
+            rec["train"] = {**{k: t[k] for k in ("batch", "seq", "steps",
+                                                 "remat", "chunk")},
+                            "losses": tr["losses"],
+                            "grad_norms": tr["grad_norms"],
+                            "step_ms": tr["step_ms"], "tok_s": tr["tok_s"],
+                            "mfu": mfu(cfg, model, t["batch"], t["seq"],
+                                       tr["step_ms"]),
+                            "max_memory_allocated": peak(device)}
+            del tr
+        if arch == "mamba2-780m":
+            sd = rec["ssd_decay"] = ssd_reference_form(device, seed)
+            check(sd["port"]["finite_values"] and sd["port"]["finite_grads"]
+                  and sd["values_rel_diff"] < TOL,
+                  f"families {arch}: SSD's masked decay gives finite "
+                  f"values and grads, values within {TOL} of the "
+                  f"reference form's ({sd})")
+        emit({"families": {**rec, "card": CARD}})
+        del model
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
 
 # ------------------------------------------------------ spgemm / spadd
 
@@ -2804,6 +3327,14 @@ def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, gemm_n: int,
         launches[name] += n
     memory_line("lm", device)
     guard_line("lm")
+
+    run_train(device, seed)
+    memory_line("train", device)
+    guard_line("train")
+
+    run_families(device, seed)
+    memory_line("families", device)
+    guard_line("families")
 
     kernels = []
     for name, recs in results.items():

@@ -119,21 +119,36 @@ def params_from_jax(cfg, params: Mapping) -> Dict[str, "torch.Tensor"]:
     The reference stacks each position ``pi`` of ``cfg.layer_pattern``
     over the ``cfg.n_groups`` groups (``blocks[pi]`` has a leading group
     axis, scanned); the port keeps one block per layer in depth order, so
-    layer ``g * len(cfg.layer_pattern) + pi`` gets ``blocks[pi][g]``.
-    Configs whose blocks the port lacks raise ``NotImplementedError``."""
+    layer ``g * len(cfg.layer_pattern) + pi`` gets ``blocks[pi][g]``. The
+    whisper encoder, stacked over ``cfg.encoder_layers``, becomes
+    ``encoder.{i}``. Every mixer (attention, ``ssd``, ``rglru``) and the
+    ``cross`` / ``norm_cross`` leaves keep their JAX names."""
     import torch
 
-    from .models.transformer import check_ported
-    check_ported(cfg)
     state = {}
     for name, leaf in _flatten({k: v for k, v in params.items()
-                                if k != "blocks"}):
+                                if k not in ("blocks", "encoder")}):
         state[name] = torch.as_tensor(np.array(leaf))
     n_pat = len(cfg.layer_pattern)
-    for pi, tree in enumerate(params["blocks"]):
+    stacks = [("blocks.{}", n_pat, pi, tree)
+              for pi, tree in enumerate(params["blocks"])]
+    if "encoder" in params:
+        stacks.append(("encoder.{}", 1, 0, params["encoder"]))
+    for fmt, stride, offset, tree in stacks:
         for name, leaf in _flatten(tree):
             leaf = np.asarray(leaf)
-            for g in range(cfg.n_groups):
-                state[f"blocks.{g * n_pat + pi}.{name}"] = torch.as_tensor(
-                    np.array(leaf[g]))
+            for g in range(leaf.shape[0]):
+                state[f"{fmt.format(g * stride + offset)}.{name}"] = \
+                    torch.as_tensor(np.array(leaf[g]))
     return state
+
+
+def opt_state_from_jax(cfg, opt_state) -> "OptState":
+    """The port optimizer's state (``AdamW.load_opt_state(state, names)``,
+    keyed by the port's parameter names) from the reference's ``OptState``
+    with numpy leaves: ``m`` and ``v`` unstacked as ``params_from_jax``
+    unstacks the parameters, ``step`` an int."""
+    from .optim.adamw import OptState
+    step, m, v = opt_state
+    return OptState(int(np.asarray(step)), params_from_jax(cfg, m),
+                    params_from_jax(cfg, v))

@@ -15,7 +15,10 @@ Usage:
 and ``decode_ms_per_token`` (means over the batches, each ended by a
 device synchronize; per batch in ``batch_prefill_ms`` and
 ``batch_decode_ms_per_token``, the first batch paying the first calls),
-``prompts`` (one array per batch) and ``last_logits`` (the last decode
+``prompts`` (one array per batch), ``audio_embed`` (encoder-decoder
+configs: each batch's stub frames, drawn from the prompts' stream after
+them as the reference draws them, bfloat16 on the device; else empty) and
+``last_logits`` (the last decode
 step's logits, on the device).
 """
 from __future__ import annotations
@@ -60,17 +63,22 @@ def main(argv: Optional[list] = None, *, model: Optional[Model] = None
     max_len = args.prompt_len + args.gen_len
 
     done, latencies, prefill_s, decode_s = 0, [], [], []
-    outputs, prompts = [], []
+    outputs, prompts, audio = [], [], []
     logits = None
     t_start = time.time()
     while done < args.requests:
         n = min(args.batch, args.requests - done)
         batch_prompts = rng.integers(1, cfg.vocab_size,
                                      (args.batch, args.prompt_len))
-        tokens = torch.as_tensor(batch_prompts.astype(np.int64), device=dev)
+        batch = {"tokens": torch.as_tensor(batch_prompts.astype(np.int64),
+                                           device=dev)}
+        if cfg.is_encdec:  # the reference's stub frames, drawn after
+            batch["audio_embed"] = torch.as_tensor(rng.standard_normal(
+                (args.batch, cfg.encoder_len, cfg.d_model)).astype(
+                    np.float32), device=dev).to(torch.bfloat16)
+            audio.append(batch["audio_embed"][:n])
         t0 = time.time()
-        logits, cache = model.prefill({"tokens": tokens},
-                                      attn_chunk=args.attn_chunk,
+        logits, cache = model.prefill(batch, attn_chunk=args.attn_chunk,
                                       cache_len=max_len)
         tok = torch.argmax(logits, dim=-1)
         _sync(dev)
@@ -97,7 +105,7 @@ def main(argv: Optional[list] = None, *, model: Optional[Model] = None
             "decode_ms_per_token": float(np.mean(decode_s)) * 1e3,
             "batch_prefill_ms": [t * 1e3 for t in prefill_s],
             "batch_decode_ms_per_token": [t * 1e3 for t in decode_s],
-            "prompts": prompts, "last_logits": logits}
+            "prompts": prompts, "audio_embed": audio, "last_logits": logits}
 
 
 if __name__ == "__main__":

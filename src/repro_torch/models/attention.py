@@ -7,8 +7,8 @@ Decode attends a single query against a (possibly rolling) KV cache.
 GQA: KV heads are repeated to Q heads *per chunk* (small), so the cache
 stays at KV-head size. Sliding windows are enforced by position masks.
 Queries are taken in blocks of ``chunk`` too, and a KV chunk that no query
-of the block can see (above the causal diagonal, or wholly behind the
-window, the banded skip) is not computed: for every query that is exactly
+of the block can see (above the causal diagonal, wholly behind the
+window, the banded skip, or wholly past ``kv_valid``) is not computed: for every query that is exactly
 the reference's result, since a fully masked chunk adds zero weight after
 a visible one and is wiped (``alpha = 0``) before the first.
 
@@ -16,16 +16,22 @@ Dots: the reference's score and context products take ``dot_dt``
 operands (bf16 at bf16 compute) with float32 accumulation and a float32
 result (``preferred_element_type``); here the ``dot_dt``-rounded operands
 are multiplied in float32, which gives that result.
+
+Under autograd each (query block, KV chunk) step runs under
+``torch.utils.checkpoint`` with nothing saved, as the reference remats its
+chunk step with ``nothing_saveable``: the (B, H, q, c) score block is
+recomputed in the backward pass instead of being kept per chunk.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
-from .layers import cdtype, param, pdtype, rope, softcap
+from .layers import cdtype, mrope, param, pdtype, rope, softcap
 from .partitioning import shard_hint
 
 NEG_INF = -1e30
@@ -48,12 +54,15 @@ def init_attention(cfg: ArchConfig, device) -> Attention:
     return Attention(cfg, device)
 
 
-def _project_qkv(cfg: ArchConfig, p: Attention, x: torch.Tensor):
+def _project_qkv(cfg: ArchConfig, p: Attention, x: torch.Tensor,
+                 kv_x: Optional[torch.Tensor] = None):
     dt = cdtype(cfg)
     b, s, _ = x.shape
+    kvx = x if kv_x is None else kv_x
+    sk = kvx.shape[1]
     q = (x @ p.wq.to(dt)).reshape(b, s, cfg.n_heads, cfg.d_head)
-    k = (x @ p.wk.to(dt)).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-    v = (x @ p.wv.to(dt)).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    k = (kvx @ p.wk.to(dt)).reshape(b, sk, cfg.n_kv_heads, cfg.d_head)
+    v = (kvx @ p.wv.to(dt)).reshape(b, sk, cfg.n_kv_heads, cfg.d_head)
     q = shard_hint(q, "batch", "attn_q_seq", "heads", None)
     k = shard_hint(k, "batch", None, "kv_heads", None)
     v = shard_hint(v, "batch", None, "kv_heads", None)
@@ -61,20 +70,43 @@ def _project_qkv(cfg: ArchConfig, p: Attention, x: torch.Tensor):
 
 
 def _positions(cfg: ArchConfig, q, k, q_pos, k_pos):
-    """RoPE on q and k (M-RoPE serves the vlm family, ROADMAP item 7b)."""
+    """RoPE on q and k, or M-RoPE (qwen2-vl) with the three position
+    streams equal, as for text."""
     if cfg.rope_theta > 0:
-        q = rope(q, q_pos, cfg.rope_theta)
-        k = rope(k, k_pos, cfg.rope_theta)
+        if cfg.mrope_sections:
+            q = mrope(q, torch.stack([q_pos] * 3), cfg.rope_theta,
+                      cfg.mrope_sections)
+            k = mrope(k, torch.stack([k_pos] * 3), cfg.rope_theta,
+                      cfg.mrope_sections)
+        else:
+            q = rope(q, q_pos, cfg.rope_theta)
+            k = rope(k, k_pos, cfg.rope_theta)
     return q, k
+
+
+def _chunk_step(cap: float, dot_dt: torch.dtype, q_blk, k_c, v_c, mask,
+                m_run, l_run, acc):
+    """One online-softmax step of a query block over one KV chunk."""
+    s_blk = torch.einsum("bhqd,bchd->bhqc", q_blk, k_c.to(dot_dt).float())
+    s_blk = softcap(s_blk, cap)
+    s_blk = s_blk.masked_fill(~mask[None, None], NEG_INF)
+    m_new = torch.maximum(m_run, s_blk.amax(-1))
+    alpha = torch.exp(m_run - m_new)
+    p_blk = torch.exp(s_blk - m_new[..., None])
+    l_new = l_run * alpha + p_blk.sum(-1)
+    acc_new = acc * alpha[..., None] + torch.einsum(
+        "bhqc,bchd->bhqd", p_blk.to(dot_dt).float(), v_c.to(dot_dt).float())
+    return m_new, l_new, acc_new
 
 
 def chunked_attention(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor, *, causal: bool, window: int = 0,
-                      chunk: int = 1024, q_offset: int = 0
-                      ) -> torch.Tensor:
+                      chunk: int = 1024, q_offset: int = 0,
+                      kv_valid: Optional[int] = None) -> torch.Tensor:
     """Online-softmax attention. q: (B,Sq,H,D); k/v: (B,Sk,KV,D).
 
-    window > 0 restricts to the sliding window (causal implied). The
+    window > 0 restricts to the sliding window (causal implied). kv_valid
+    masks trailing KV padding (whisper's padded encoder length). The
     score/context products take compute-dtype operands with float32
     accumulation; softmax statistics stay float32.
     """
@@ -88,9 +120,10 @@ def chunked_attention(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
     scale = 1.0 / (d ** 0.5)
     dev = q.device
     dot_dt = q.dtype
+    remat = torch.is_grad_enabled()
     # the rounded dot operand, multiplied in float32
     qf = (q.float() * scale).to(dot_dt).float().transpose(1, 2)
-    out = torch.empty((b, h, sq, d), dtype=torch.float32, device=dev)
+    outs = []
     for q0 in range(0, sq, chunk):
         q1 = min(q0 + chunk, sq)
         q_pos = q_offset + torch.arange(q0, q1, device=dev)
@@ -98,6 +131,7 @@ def chunked_attention(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
         m_run = torch.full((b, h, q1 - q0), NEG_INF, device=dev)
         l_run = torch.zeros((b, h, q1 - q0), device=dev)
         acc = torch.zeros((b, h, q1 - q0, d), device=dev)
+        q_blk = qf[:, :, q0:q1]
         for k0 in range(0, sk, chunk):
             k1 = k0 + chunk
             # banded skip: no query of this block sees the chunk
@@ -105,45 +139,48 @@ def chunked_attention(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
                 break
             if window > 0 and first - (k1 - 1) >= window:
                 continue
+            if kv_valid is not None and k0 >= kv_valid:
+                break
             k_c, v_c = k[:, k0:k1], v[:, k0:k1]
             if rep > 1:
                 k_c = k_c.repeat_interleave(rep, dim=2)
                 v_c = v_c.repeat_interleave(rep, dim=2)
             k_c = shard_hint(k_c, "batch", None, "heads", None)
             v_c = shard_hint(v_c, "batch", None, "heads", None)
-            s_blk = torch.einsum("bhqd,bchd->bhqc", qf[:, :, q0:q1],
-                                 k_c.to(dot_dt).float())
-            s_blk = softcap(s_blk, cfg.softcap_attn)
             k_pos = torch.arange(k0, k1, device=dev)
             mask = torch.ones((q1 - q0, chunk), dtype=torch.bool, device=dev)
             if causal:
                 mask &= q_pos[:, None] >= k_pos[None, :]
             if window > 0:
                 mask &= (q_pos[:, None] - k_pos[None, :]) < window
-            s_blk = s_blk.masked_fill(~mask[None, None], NEG_INF)
-            m_new = torch.maximum(m_run, s_blk.amax(-1))
-            alpha = torch.exp(m_run - m_new)
-            p_blk = torch.exp(s_blk - m_new[..., None])
-            l_run = l_run * alpha + p_blk.sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bhqc,bchd->bhqd", p_blk.to(dot_dt).float(),
-                v_c.to(dot_dt).float())
-            m_run = m_new
-        out[:, :, q0:q1] = acc / torch.clamp_min(l_run, 1e-30)[..., None]
+            if kv_valid is not None:
+                mask &= (k_pos < kv_valid)[None, :]
+            args = (cfg.softcap_attn, dot_dt, q_blk, k_c, v_c, mask,
+                    m_run, l_run, acc)
+            m_run, l_run, acc = (
+                checkpoint(_chunk_step, *args, use_reentrant=False)
+                if remat else _chunk_step(*args))
+        outs.append(acc / torch.clamp_min(l_run, 1e-30)[..., None])
+    out = torch.cat(outs, dim=2)
     return out.transpose(1, 2).to(q.dtype)                  # (B,Sq,H,D)
 
 
 def apply_attention(cfg: ArchConfig, p: Attention, x: torch.Tensor, *,
-                    kind: str, chunk: int = 1024, return_kv: bool = False):
-    """Train/prefill causal self-attention over a full sequence (the
-    reference's bidirectional and cross-attention forms serve the
-    encoder-decoder family, which comes with ROADMAP item 7b)."""
-    q, k, v = _project_qkv(cfg, p, x)
-    pos = torch.arange(x.shape[1], device=x.device)
-    q, k = _positions(cfg, q, k, pos, pos)
+                    kind: str, bidirectional: bool = False,
+                    kv_x: Optional[torch.Tensor] = None,
+                    kv_valid: Optional[int] = None, chunk: int = 1024,
+                    return_kv: bool = False):
+    """Train/prefill attention over a full sequence: causal or
+    bidirectional self-attention, or cross-attention over ``kv_x`` (no
+    positions), with trailing keys past ``kv_valid`` masked."""
+    q, k, v = _project_qkv(cfg, p, x, kv_x)
+    if kv_x is None:  # self-attention gets positions; cross-attention none
+        q_pos = torch.arange(q.shape[1], device=x.device)
+        k_pos = torch.arange(k.shape[1], device=x.device)
+        q, k = _positions(cfg, q, k, q_pos, k_pos)
     window = cfg.window if kind in WINDOWED else 0
-    out = chunked_attention(cfg, q, k, v, causal=True, window=window,
-                            chunk=chunk)
+    out = chunked_attention(cfg, q, k, v, causal=not bidirectional,
+                            window=window, chunk=chunk, kv_valid=kv_valid)
     dt = cdtype(cfg)
     y = out.reshape(out.shape[0], out.shape[1], -1) @ p.wo.to(dt)
     y = shard_hint(y, "batch", None, None)
@@ -163,17 +200,31 @@ def init_attn_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
 
 def decode_attention(cfg: ArchConfig, p: Attention, x: torch.Tensor,
                      cache: Dict[str, torch.Tensor],
-                     pos: Union[int, torch.Tensor], *, kind: str
+                     pos: Union[int, torch.Tensor], *, kind: str,
+                     cross_kv: Optional[Tuple[torch.Tensor,
+                                              torch.Tensor]] = None,
+                     kv_valid: Optional[int] = None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One-token self-attention. x: (B, 1, d); pos: the current position.
+    """One-token attention. x: (B, 1, d); pos: the current position.
 
-    The new key and value are written into ``cache`` in place (the JAX
-    function returns an updated copy; its serve loop donates the old one),
-    and the same dict is returned."""
+    Self-attention writes the new key and value into ``cache`` in place
+    (the JAX function returns an updated copy; its serve loop donates the
+    old one) and returns the same dict. Cross-attention (``cross_kv``, the
+    encoder's keys and values, those past ``kv_valid`` masked) reads only
+    and returns ``cache`` unchanged."""
     dt = cdtype(cfg)
     b = x.shape[0]
-    pos = int(pos)
     dev = x.device
+    if cross_kv is not None:
+        q = (x @ p.wq.to(dt)).reshape(b, 1, cfg.n_heads, cfg.d_head)
+        k, v = cross_kv
+        mask = (torch.arange(k.shape[1], device=dev) < kv_valid
+                if kv_valid is not None else None)
+        out = _single_query_attention(cfg, q, k, v, mask)
+        y = out.reshape(b, 1, -1) @ p.wo.to(dt)
+        return y, cache
+
+    pos = int(pos)
     q, k_new, v_new = _project_qkv(cfg, p, x)
     at = torch.full((1,), pos, device=dev)  # a fill: no host copy
     q, k_new = _positions(cfg, q, k_new, at, at)

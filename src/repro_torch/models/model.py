@@ -1,7 +1,8 @@
 """Model facade (port of ``repro.models.model``): a config and its
-parameters as one ``nn.Module``, with the serving API.
+parameters as one ``nn.Module``, with the training and serving API.
 
     model = Model(get_config("llama3.2-3b"), device="cuda").init(seed=0)
+    loss, metrics = model.loss({"tokens": tokens}); loss.backward()
     logits, cache = model.prefill({"tokens": tokens}, cache_len=S + n)
     logits, cache = model.decode(cache, token, pos)
     out = model.generate(prompt, steps=32)
@@ -74,6 +75,14 @@ class Model(tfm.Params):
         return self
 
     # --------------------------------------------------------------- steps
+    def loss(self, batch: Dict[str, torch.Tensor], *,
+             remat: str = "dots_no_batch", attn_chunk: int = 1024):
+        """(loss, metrics) of ``forward_train`` on ``batch`` (tokens [,
+        loss_mask, audio_embed]; moved to the model's device), with
+        autograd as the caller has it."""
+        return tfm.forward_train(self.cfg, self, self._on_device(batch),
+                                 remat=remat, attn_chunk=attn_chunk)
+
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor], *,
                 attn_chunk: int = 1024, cache_len: Optional[int] = None):
@@ -92,21 +101,28 @@ class Model(tfm.Params):
         return tfm.init_cache(self.cfg, batch, max_len, self.device)
 
     def _on_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v, device=self.device)
-                for k, v in batch.items()}
+        out = {k: torch.as_tensor(v, device=self.device)
+               for k, v in batch.items()}
+        out["tokens"] = out["tokens"].long()
+        return out
 
     # ------------------------------------------------------------ sampling
     @torch.no_grad()
     def generate(self, prompt: torch.Tensor, steps: int,
                  max_len: Optional[int] = None, temperature: float = 0.0,
-                 generator: Optional[torch.Generator] = None
+                 generator: Optional[torch.Generator] = None,
+                 audio_embed: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
         """Greedy (``temperature <= 0`` or no generator) or temperature
-        sampling; returns the (B, steps) generated tokens."""
+        sampling; returns the (B, steps) generated tokens. Encoder-decoder
+        configs take the frames as ``audio_embed`` (B, encoder_len, d)."""
         prompt = torch.as_tensor(prompt, device=self.device)
         b, s = prompt.shape
         max_len = max_len or (s + steps)
-        logits, cache = self.prefill({"tokens": prompt}, cache_len=max_len)
+        batch = {"tokens": prompt}
+        if audio_embed is not None:
+            batch["audio_embed"] = audio_embed
+        logits, cache = self.prefill(batch, cache_len=max_len)
         toks = []
         tok = self._sample(logits, temperature, generator)
         for i in range(steps):

@@ -1592,3 +1592,115 @@ def test_lm_prefill_and_decode_on_card_equal_the_cpu_port(card, arch):
         lg, cg = gpu.decode(cg, tok.to(card), 64 + step)
         close(lg, lc)
         tok = torch.argmax(lc, -1)
+
+
+# ------------------------------------------- the LM's training and families
+
+def _reduced_pair(card, arch, seed=3, **kw):
+    """A reduced config at float32 compute on the CPU and on the card, on
+    the same weights."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              compute_dtype="float32", **kw)
+    cpu = Model(cfg, device="cpu").init(seed=seed)
+    gpu = Model(cfg, device=card)
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu
+
+
+def _lm_batch(cfg, b=2, s=64, seed=4):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.as_tensor(rng.integers(1, cfg.vocab_size,
+                                                    (b, s)))}
+    if cfg.is_encdec:
+        batch["audio_embed"] = torch.as_tensor(rng.standard_normal(
+            (b, cfg.encoder_len, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+def _close(a, b, tol=1e-4):
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    assert float((a - b).abs().max()) <= tol * max(float(b.abs().max()),
+                                                   1e-30)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mixtral-8x22b",
+                                  "mamba2-780m", "recurrentgemma-9b",
+                                  "whisper-large-v3", "qwen2-vl-72b"])
+def test_lm_loss_and_grads_on_card_equal_the_cpu_port(card, arch):
+    """``Model.loss`` and its gradients on the card against the CPU port
+    at float32 compute (full fp32 matmuls on both), under remat
+    ``dots_no_batch`` on the card and none on the CPU."""
+    cpu, gpu = _reduced_pair(card, arch)
+    batch = _lm_batch(cpu.cfg)
+    lc, _ = cpu.loss(batch, remat="none", attn_chunk=32)
+    lc.backward()
+    lg, _ = gpu.loss(batch, remat="dots_no_batch", attn_chunk=32)
+    lg.backward()
+    _close(lg, lc, 1e-5)
+    for (n, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        _close(pg.grad, pc.grad)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-9b",
+                                  "whisper-large-v3", "qwen2-vl-72b"])
+def test_families_prefill_and_decode_on_card_equal_the_cpu_port(card, arch):
+    """The ssm, hybrid, audio and vlm configs' prefill logits, caches
+    (SSD / RG-LRU states, cross K/V) and three greedy decode steps on the
+    card equal the CPU port's at float32 compute."""
+    cpu, gpu = _reduced_pair(card, arch)
+    batch = _lm_batch(cpu.cfg)
+    lc, cc = cpu.prefill(batch, attn_chunk=32, cache_len=70)
+    lg, cg = gpu.prefill(batch, attn_chunk=32, cache_len=70)
+    _close(lg, lc)
+    for c_g, c_c in zip(cg, cc):
+        for part in c_c:
+            for k in c_c[part]:
+                _close(c_g[part][k], c_c[part][k])
+    tok = torch.argmax(lc, -1)
+    for step in range(3):
+        lc, cc = cpu.decode(cc, tok, 64 + step)
+        lg, cg = gpu.decode(cg, tok.to(card), 64 + step)
+        _close(lg, lc)
+        tok = torch.argmax(lc, -1)
+
+
+def test_train_driver_on_card(card, tmp_path):
+    """The reference's two system tests' properties through
+    ``launch.train`` on the card: a reduced llama loses more than 0.5 in
+    40 steps; a reduced mamba2 with simulated failures ends at step 12
+    after 2 restarts, re-running steps 3 and 6-7 (checkpoints every 3
+    steps), each loss within 1e-5 of an uninterrupted run's."""
+    from repro_torch.launch import train
+    res = train.main(["--arch", "llama3.2-3b", "--reduced", "--steps", "40",
+                      "--batch", "8", "--seq", "64", "--lr", "3e-3",
+                      "--ckpt-dir", str(tmp_path / "a"), "--save-every",
+                      "100", "--attn-chunk", "32", "--device", "cuda"])
+    assert res["losses"][-1] < res["losses"][0] - 0.5
+    assert res["restarts"] == 0 and res["loss_steps"] == list(range(40))
+    argv = ["--arch", "mamba2-780m", "--reduced", "--steps", "12",
+            "--batch", "4", "--seq", "64", "--save-every", "3",
+            "--attn-chunk", "32", "--device", "cuda"]
+    res = train.main(argv + ["--simulate-failures", "--ckpt-dir",
+                             str(tmp_path / "b")])
+    clean = train.main(argv + ["--ckpt-dir", str(tmp_path / "c")])
+    assert res["final_step"] == 12 and res["restarts"] == 2
+    assert res["loss_steps"] == [0, 1, 2, 3, 3, 4, 5, 6, 7, 6, 7, 8, 9,
+                                 10, 11]            # steps 3 and 6-7 re-run
+    assert clean["restarts"] == 0 and clean["loss_steps"] == list(range(12))
+    for step, loss in zip(res["loss_steps"], res["losses"]):
+        assert abs(loss - clean["losses"][step]) <= \
+            1e-5 * abs(clean["losses"][step])
+
+
+def test_ssd_masked_decay_keeps_grads_finite_on_card(card):
+    """One SSD chunk of mamba2-780m's full size at its initial decay: the
+    reference's unmasked ``exp`` form gives non-finite gradients, the
+    port's finite ones and the same values."""
+    import chip_smoke
+    out = chip_smoke.ssd_reference_form("cuda", 0)
+    assert out["max_decay_sum"] > 88.8
+    assert not out["reference"]["finite_grads"]
+    assert out["port"]["finite_grads"] and out["values_rel_diff"] < 1e-6

@@ -1,8 +1,9 @@
 """The port's LM serving path (``repro_torch.models``, ``launch.serve``,
 ``examples.serve_lm``, ``core.maskchar``, ``roofline.model_flops``) held
-against the JAX package's on the CPU, for the attention families (dense:
-llama3.2-3b, phi3-medium-14b, phi4-mini-3.8b, gemma2-9b; MoE:
-mixtral-8x22b, dbrx-132b) at their reduced configs.
+against the JAX package's on the CPU, for the attention configs at their
+reduced sizes (dense: llama3.2-3b, phi3-medium-14b, phi4-mini-3.8b,
+gemma2-9b; MoE: mixtral-8x22b, dbrx-132b); ``test_torch_models_families.py``
+runs the same parametrised tests on the ssm, hybrid, audio and vlm configs.
 
 The JAX parameters are carried across (``convert.params_from_jax``), so
 both packages run the same weights on the same tokens: prefill and decode
@@ -16,6 +17,7 @@ reference's own model tests on the port, the serve CLI (the reference's
 tokens at float32 compute), the multi-RHS decode example, ``maskchar`` and
 ``model_flops``."""
 import dataclasses
+import functools
 import sys
 from pathlib import Path
 
@@ -47,14 +49,15 @@ from repro_torch.models import Model, count_active_params, count_params
 from repro_torch.models import layers, moe, transformer as tfm
 from repro_torch.roofline import model_bytes, model_flops
 from repro_torch.sparse import launch_count
+from torch_lm_parity import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = "cpu"
+# the attention families; test_torch_models_families.py runs the
+# parametrised tests below on the other four configs
 ARCHS = ("llama3.2-3b", "phi3-medium-14b", "phi4-mini-3.8b", "gemma2-9b",
          "mixtral-8x22b", "dbrx-132b")
 MOE_ARCHS = ("mixtral-8x22b", "dbrx-132b")
-UNPORTED = ("mamba2-780m", "recurrentgemma-9b", "whisper-large-v3",
-            "qwen2-vl-72b")
 # relative to max|logits|: float32 compute differs in summation order only;
 # bf16 is the reference's own decode-vs-forward bound
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -85,18 +88,61 @@ def _tokens(cfg, b, s, seed=0):
         1, cfg.vocab_size, (b, s)).astype(np.int32)
 
 
+def _batches(cfg, toks, seed=0):
+    """(port batch, JAX batch) of ``toks``, with float32 stub frames for
+    encoder-decoder configs."""
+    tb = {"tokens": torch.as_tensor(toks)}
+    jb = {"tokens": jnp.asarray(toks)}
+    if cfg.is_encdec:
+        a = np.random.default_rng(seed + 100).standard_normal(
+            (toks.shape[0], cfg.encoder_len, cfg.d_model)).astype(np.float32)
+        tb["audio_embed"], jb["audio_embed"] = torch.as_tensor(a), \
+            jnp.asarray(a)
+    return tb, jb
+
+
+class _JRef:
+    """The reference model's prefill (attention chunk 32, ``cache_len``)
+    and decode under ``jax.jit``, each compiled for the shapes of its first
+    call at XLA's backend optimisation level 0: on the CPU that takes a
+    third of the time of the eager calls' compiles, and the logits stay
+    within 1e-6 relative of theirs."""
+
+    def __init__(self, jm, cache_len):
+        self.jm, self.cache_len = jm, cache_len
+        self._prefill = self._decode = None
+
+    @staticmethod
+    def _compile(fn, *args):
+        return jax.jit(fn).lower(*args).compile(
+            compiler_options={"xla_backend_optimization_level": 0})
+
+    def prefill(self, jp, batch):
+        if self._prefill is None:
+            self._prefill = self._compile(functools.partial(
+                self.jm.prefill, attn_chunk=32, cache_len=self.cache_len),
+                jp, batch)
+        return self._prefill(jp, batch)
+
+    def decode(self, jp, cache, token, pos):
+        args = (jp, cache, jnp.asarray(token), jnp.asarray(pos, jnp.int32))
+        if self._decode is None:
+            self._decode = self._compile(self.jm.decode, *args)
+        return self._decode(*args)
+
+
 def _rel(a, ref):
     a = np.asarray(a, np.float32)
     ref = np.asarray(ref, np.float32)
     return float(np.abs(a - ref).max() / max(np.abs(ref).max(), 1e-30))
 
 
-def _jcache(jcache, cfg, layer):
-    """Layer ``layer``'s cache entry of the reference's group-stacked
-    cache."""
+def _jcache(jcache, cfg, layer, part="self"):
+    """Layer ``layer``'s cache entry (``part`` "self" or "cross") of the
+    reference's group-stacked cache."""
     pi, g = layer % cfg.pattern_len, layer // cfg.pattern_len
     return {k: np.asarray(v[g], np.float32)
-            for k, v in jcache[pi]["self"].items()}
+            for k, v in jcache[pi][part].items()}
 
 
 # ------------------------------------------------------------------ configs
@@ -124,12 +170,6 @@ def test_shape_applicability_rules():
     for arch in ("llama3.2-3b", "phi3-medium-14b", "phi4-mini-3.8b",
                  "qwen2-vl-72b", "dbrx-132b", "whisper-large-v3"):
         assert not shape_applicable(get_config(arch), long), arch
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="7b"):
-        Model(get_config(arch, reduced=True), device=CPU)
 
 
 def test_model_defaults_to_the_card():
@@ -217,6 +257,29 @@ def test_layers_like_jax():
 
 # -------------------------------------------------- the reference's numbers
 
+def _bf16_floor(arch, run):
+    """The reference's own bfloat16 error: ``run(jax model, params)``'s
+    outputs at bfloat16 against float32 compute, largest relative error
+    over them (same weights, same inputs)."""
+    outs = {}
+    for compute in ("float32", "bfloat16"):
+        _, jcfg = _cfgs(arch, compute)
+        jm = JModel(jcfg)
+        outs[compute] = run(jm, jm.init(jax.random.PRNGKey(1)))
+    return max(_rel(a, b) for a, b in zip(outs["bfloat16"],
+                                          outs["float32"]))
+
+
+def _bound(arch, compute, run):
+    """``TOL[compute]``; for recurrentgemma at bfloat16, twice the
+    reference's own bfloat16 error where that is larger (its RG-LRU layers
+    round more: the reference's bf16 decode logits sit 4e-2 from its
+    float32 ones)."""
+    if compute == "float32" or arch != "recurrentgemma-9b":
+        return TOL[compute]
+    return max(TOL[compute], 2 * _bf16_floor(arch, run))
+
+
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_logits_match_jax(arch, compute):
@@ -224,19 +287,34 @@ def test_prefill_and_decode_logits_match_jax(arch, compute):
     cfg = model.cfg
     b, s = 2, 64
     toks = _tokens(cfg, b, s)
-    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, attn_chunk=32,
-                        cache_len=s + 4)
-    lg, cache = model.prefill({"tokens": torch.as_tensor(toks)},
-                              attn_chunk=32, cache_len=s + 4)
-    assert lg.shape == (b, cfg.vocab_padded) and lg.dtype == torch.float32
-    assert _rel(lg, jl) < TOL[compute], _rel(lg, jl)
-    nxt = np.argmax(np.asarray(jl), -1).astype(np.int32)
+    tb, jb = _batches(cfg, toks)
+
+    def jrun(jm, jp):
+        ref = _JRef(jm, s + 4)
+        jl, jc = ref.prefill(jp, jb)
+        out = [jl]
+        for step, t in enumerate(nxts):
+            jl, jc = ref.decode(jp, jc, t, s + step)
+            out.append(jl)
+        return out
+
+    # the tokens decoded: the reference's greedy picks at this compute
+    ref = _JRef(jm, s + 4)
+    jl, jc = ref.prefill(jp, jb)
+    want, nxts = [jl], []
     for step in range(2):
-        jl, jc = jm.decode(jp, jc, jnp.asarray(nxt),
-                           jnp.asarray(s + step, jnp.int32))
-        lg, cache = model.decode(cache, torch.as_tensor(nxt), s + step)
-        assert _rel(lg, jl) < TOL[compute], (step, _rel(lg, jl))
-        nxt = np.argmax(np.asarray(jl), -1).astype(np.int32)
+        nxts.append(np.argmax(np.asarray(jl), -1).astype(np.int32))
+        jl, jc = ref.decode(jp, jc, nxts[-1], s + step)
+        want.append(jl)
+    bound = _bound(arch, compute, jrun)
+    lg, cache = model.prefill(tb, attn_chunk=32, cache_len=s + 4)
+    assert lg.shape == (b, cfg.vocab_padded) and lg.dtype == torch.float32
+    got = [lg]
+    for step, t in enumerate(nxts):
+        lg, cache = model.decode(cache, torch.as_tensor(t), s + step)
+        got.append(lg)
+    for step, (lg, jl) in enumerate(zip(got, want)):
+        assert _rel(lg, jl) < bound, (step, _rel(lg, jl), bound)
 
 
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])
@@ -246,30 +324,36 @@ def test_kv_cache_matches_jax(arch, compute):
     gemma2's local layers and mixtral's sliding-window layers (window 32)
     hold a rolling buffer of the last 32 positions of a 64-token prompt
     (``cache_len`` 68 > window), the full-attention layers 64 positions
-    zero-padded to 68."""
+    zero-padded to 68; the SSD and RG-LRU layers their float32 state and
+    conv tail; whisper's decoder layers also the encoder's cross K/V
+    (padded to 512 frames)."""
     model, jm, jp = _pair(arch, compute)
     cfg = model.cfg
     toks = _tokens(cfg, 2, 64, seed=3)
-    _, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, attn_chunk=32,
-                       cache_len=68)
-    _, cache = model.prefill({"tokens": torch.as_tensor(toks)},
-                             attn_chunk=32, cache_len=68)
+    tb, jb = _batches(cfg, toks, seed=3)
+    ref = _JRef(jm, 68)
+    _, jc = ref.prefill(jp, jb)
+    _, cache = model.prefill(tb, attn_chunk=32, cache_len=68)
     windowed = [i for i in range(cfg.n_layers)
                 if cfg.layer_pattern[i % cfg.pattern_len] != "attn"]
     if arch in ("gemma2-9b", "mixtral-8x22b"):
         assert windowed and all(cache[i]["self"]["k"].shape[1] == cfg.window
                                 < 68 for i in windowed)
+    parts = ("self", "cross") if cfg.cross_attention else ("self",)
     for when in ("prefill", "decode"):
         for i in range(cfg.n_layers):
-            want = _jcache(jc, cfg, i)
-            for k in ("k", "v"):
-                got = cache[i]["self"][k]
-                assert got.dtype == getattr(torch, compute)
-                assert tuple(got.shape) == want[k].shape
-                assert _rel(got.float(), want[k]) < TOL[compute], (when, i, k)
+            for part in parts:
+                want = _jcache(jc, cfg, i, part)
+                assert sorted(cache[i][part]) == sorted(want)
+                for k, got in cache[i][part].items():
+                    # recurrent states are float32, the rest compute dtype
+                    assert got.dtype == (torch.float32 if k == "h" else
+                                         getattr(torch, compute))
+                    assert tuple(got.shape) == want[k].shape
+                    assert _rel(got.float(), want[k]) < TOL[compute], \
+                        (when, i, part, k)
         tok = np.full((2,), 7, np.int32)
-        _, jc = jm.decode(jp, jc, jnp.asarray(tok), jnp.asarray(64,
-                                                                jnp.int32))
+        _, jc = ref.decode(jp, jc, tok, 64)
         _, cache = model.decode(cache, torch.as_tensor(tok), 64)
 
 
@@ -347,17 +431,17 @@ def test_smoke_prefill_decode_shapes(arch):
     cfg = get_config(arch, reduced=True)
     model = Model(cfg, device=CPU).init(seed=0)
     b, s = 2, 64
-    toks = torch.as_tensor(_tokens(cfg, b, s))
-    logits, cache = model.prefill({"tokens": toks}, attn_chunk=32,
-                                  cache_len=s + 4)
+    tb, _ = _batches(cfg, _tokens(cfg, b, s))
+    logits, cache = model.prefill(tb, attn_chunk=32, cache_len=s + 4)
     assert logits.shape == (b, cfg.vocab_padded)
     assert torch.isfinite(logits).all()
     lg, cache2 = model.decode(cache, torch.ones(b, dtype=torch.int64), s)
     assert lg.shape == (b, cfg.vocab_padded) and torch.isfinite(lg).all()
     assert len(cache2) == cfg.n_layers
-    # the decode step writes into the prefill cache's tensors in place
+    # the decode step writes attention K/V into the prefill cache's
+    # tensors in place
     assert all(c2["self"]["k"] is c["self"]["k"]
-               for c, c2 in zip(cache, cache2))
+               for c, c2 in zip(cache, cache2) if "k" in c["self"])
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -373,12 +457,14 @@ def test_decode_matches_full_forward(arch):
     b, s = 2, 65
     toks = torch.as_tensor(_tokens(cfg, b, s, seed=6))
     full = torch.cat([toks, toks[:, :31]], dim=1)
-    _, cache = model.prefill({"tokens": toks[:, :s - 1]}, attn_chunk=32,
-                             cache_len=s)
+    batch, _ = _batches(cfg, toks[:, :s - 1].numpy(), seed=6)
+    _, cache = model.prefill(batch, attn_chunk=32, cache_len=s)
     lg_d, _ = model.decode(cache, toks[:, s - 1], s - 1)
     with torch.no_grad():
         x = tfm.embed_tokens(cfg, model, full)
+        enc, valid = tfm._cross(cfg, model, batch, 32)
         h, _, _ = tfm.apply_stack(cfg, model.blocks, x, mode="train",
+                                  cross_enc=enc, enc_valid=valid,
                                   attn_chunk=32)
         h = tfm.apply_norm(cfg, model.final_norm, h)
         lg_ref = tfm.logits_at(cfg, model, h[:, s - 1:s])[:, 0]
@@ -390,7 +476,10 @@ def test_param_counts_in_expected_range():
     advertised ballpark (``meta`` tensors: no memory)."""
     expect = {"llama3.2-3b": (2.5e9, 4.5e9), "phi3-medium-14b": (12e9, 16e9),
               "mixtral-8x22b": (120e9, 150e9), "dbrx-132b": (110e9, 145e9),
-              "gemma2-9b": (8e9, 11.5e9), "phi4-mini-3.8b": (3e9, 5e9)}
+              "qwen2-vl-72b": (62e9, 80e9), "gemma2-9b": (8e9, 11.5e9),
+              "mamba2-780m": (0.6e9, 1.0e9), "phi4-mini-3.8b": (3e9, 5e9),
+              "recurrentgemma-9b": (7.5e9, 11e9),
+              "whisper-large-v3": (1.2e9, 2.1e9)}
     for arch, (lo, hi) in expect.items():
         n = count_params(Model(get_config(arch), device="meta"))
         assert lo <= n <= hi, (arch, n)
@@ -452,7 +541,8 @@ def test_serving_generates_tokens():
 def test_serve_cli_gives_the_reference_tokens_at_float32(arch, monkeypatch):
     """Both serve CLIs on the same weights (the reference's draw from
     ``PRNGKey(0)``, carried across) at float32 compute: the same prompts
-    and the same greedy tokens."""
+    (and, for whisper, the same bfloat16 stub frames, drawn after them from
+    the same stream) and the same greedy tokens."""
     cfg, jcfg = _cfgs(arch, "float32")
     monkeypatch.setattr(jserve, "get_config", lambda *a, **k: jcfg)
     argv = ["--arch", arch, "--reduced", "--requests", "4", "--batch", "2",
