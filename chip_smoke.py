@@ -8,12 +8,13 @@ its calibration report, mutable matrices between solves, sharded SpMV/SpMM
 with per-shard selection, the MoE decode loop, an MoE prefill and prefill
 attention at mixtral-8x22b width, the LM substrate's serving path
 (llama3.2-3b at full size, mixtral-8x22b at full width), its training step
-(llama3.2-3b at full size) and its ssm, hybrid, audio and vlm families,
-all under the guard (``GuardedExecutor``), and holds every kernel against
+(llama3.2-3b at full size, and data-parallel on a mesh of one) and its ssm,
+hybrid, audio and vlm families with their roofline terms, and two dry-run
+cells, all under the guard (``GuardedExecutor``), and holds every kernel against
 its plain PyTorch version (and the sparse ones against a float64 CSR
 oracle).
 
-    python3 chip_smoke.py            # needs one CUDA card; ~11-13 min
+    python3 chip_smoke.py            # needs one CUDA card; ~14-17 min
 
 Phases (any failure exits nonzero; nothing is caught and passed over):
   1. build the five CUDA sources of ``src/repro_torch/csrc`` (one nvcc per
@@ -207,9 +208,9 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      8 requests of 512 + 32 tokens through ``launch.serve``, then 3 train
      steps of 4 x 512), recurrentgemma-9b (full width, one (rglru, rglru,
      local_attn) group of 12; a 4 x 512 prefill and 16 decode steps, then 2
-     train steps of 4 x 512), whisper-large-v3 (full size, 1500 stub frames
-     padded to 1536; 4 requests of 64 + 32 tokens through ``launch.serve``,
-     then 2 train steps of 4 x 256) and qwen2-vl-72b (full width, 1 of 80
+     train steps of 4 x 512), whisper-large-v3 (full size, 1500 stub
+     frames padded to 1536; 4 requests of 64 + 32 tokens through
+     ``launch.serve``, then 2 train steps of 4 x 256) and qwen2-vl-72b (full width, 1 of 80
      layers; a 4 x 512 prefill and 16 decode steps): each the decode-
      versus-forward check (the last decode step's logits within
      ``3e-2 * max|logits|`` of a full forward's at that position), finite
@@ -218,6 +219,35 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      ``where(tri, exp(li), 0)`` and the port's masked decay: the port's
      values and gradients finite and its values within 1e-4 relative of
      the reference form's;
+  6e. roofline records: the lm, train and families lines carry the
+     three-term roofline of each timed step: the step's operators counted
+     by ``repro_torch.roofline.OpCounter`` on a ``meta`` model of the same
+     config and shape (``count_roofline``), on ``H100_SXM``'s rates:
+     compute, memory and collective seconds (0 on one card), the
+     bottleneck, the useful ratio, the roofline fraction and
+     ``measured_over_bound``, the measured step time over the largest term.
+     The counts run in a background process that sees no card
+     (``start_background``, one thread), started when the spgemm phase
+     starts: beside the kernel phases, whose times are CUDA events, and
+     before every LM timed window;
+  6f. dp phase, a ``{"dp": ...}`` line: ``launch.train --data-parallel 1``
+     on the card (an NCCL group of one, ``make_debug_mesh(1, 1)``, the
+     logical rules installed, each fp32 gradient reduce-scattered onto its
+     FSDP shard, AdamW on the shards) at the train phase's argv for 3
+     steps: its losses within 1e-6 of the train phase's first 3, its step
+     ms beside that phase's, and the counted bytes of one step's gradient
+     reduction (every parameter's fp32 gradient once, the matrices by
+     reduce-scatter);
+  6g. dryrun phase, ``{"dryrun": ...}`` lines: ``python -m
+     repro_torch.launch.dryrun`` for llama3.2-3b ``train_4k`` on 16 x 16 and
+     mixtral-8x22b ``decode_32k`` on 2 x 16 x 16, each in a background
+     process started with the counts (no card visible; their fake process
+     groups of 256 and 512 ranks never meet this process's NCCL one),
+     read after the families phase: each cell's terms, memory per device,
+     build seconds, the mesh its tensors were placed on and its
+     deviations from the reference's layout; both cells ``ok`` with a
+     useful ratio in (0, 1].
+Each phase ends with a ``{"phase_s": ...}`` line, its seconds.
   7. per kernel x input, at the main path's shapes: the kernel against its
      plain version over the whole output (spgemm, moe and flash within
      ``1e-4 * max|plain|``, spadd bit for bit), the kernel's median time
@@ -380,7 +410,8 @@ TRAIN_DIR = Path(__file__).resolve().parent / "build" / "train_smoke"
 BF16_FLOP_PER_S = 989.4e12         # H100 SXM dense bf16 tensor cores
 # the families phase: the ssm, hybrid, audio and vlm configs at full width
 # (recurrentgemma-9b cut to one (rglru, rglru, local_attn) group,
-# qwen2-vl-72b to 1 of 80 layers: 80 would need about 290 GB in float32)
+# qwen2-vl-72b to 1 of 80 layers: 80 would need about 290 GB in float32;
+# whisper-large-v3 at full size)
 FAMILIES = {
     # at bf16 the decode-versus-forward error grows with depth in both
     # packages: at 48 layers the reference's is 4.71e-2 (the port's
@@ -393,7 +424,7 @@ FAMILIES = {
                     "train": {"batch": 4, "seq": 512, "steps": 3,
                               "lr": 3e-4, "warmup": 1, "chunk": 256,
                               "remat": "dots_no_batch"}},
-    "recurrentgemma-9b": {"layers": 3,
+    "recurrentgemma-9b": {"cut": {"n_layers": 3},
                           "serve": {"batch": 4, "prompt": 512, "gen": 17,
                                     "chunk": 256},
                           "train": {"batch": 4, "seq": 512, "steps": 2,
@@ -407,10 +438,19 @@ FAMILIES = {
                          "train": {"batch": 4, "seq": 256, "steps": 2,
                                    "lr": 3e-4, "warmup": 1, "chunk": 256,
                                    "remat": "dots_no_batch"}},
-    "qwen2-vl-72b": {"layers": 1,
+    "qwen2-vl-72b": {"cut": {"n_layers": 1},
                      "serve": {"batch": 4, "prompt": 512, "gen": 17,
                                "chunk": 256}},
 }
+# the dp phase: launch.train --data-parallel 1 (an NCCL group of one) at
+# TRAIN_FULL's argv for 3 steps, its losses against the train phase's
+DP_STEPS = 3
+DP_AGREE = 1e-6
+# the dryrun phase: the dry-run CLI on two full-size cells, one per mesh
+DRYRUN_CELLS = (("llama3.2-3b", "train_4k", False),
+                ("mixtral-8x22b", "decode_32k", True))
+DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "dryrun_smoke"
+BACKGROUND_TIMEOUT_S = 900
 # the card's name and power limit, printed beside every time of the new
 # phases (main sets it; a CPU rehearsal has no card)
 CARD = "no card"
@@ -2031,7 +2071,154 @@ def device_profile(fn, device: str, top: int = 8):
                     for k, (ms, n) in ops[:top]]}
 
 
-def run_lm(device: str, seed: int) -> dict:
+def lm_cfg(arch: str, cut: dict):
+    """``arch``'s config with the depth ``cut`` (``dataclasses.replace``
+    fields) of its smoke path."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), **cut)
+
+
+def roofline_jobs() -> dict:
+    """{"<arch>/<kind>": the step of each timed LM line whose roofline the
+    smoke prints: (arch, depth cut, kind, batch, seq, step keywords)}."""
+    jobs = {}
+    for d, cut in ((LM_SERVE, {}), (LM_MOE, {"n_layers": LM_MOE["layers"]})):
+        gen = d.get("gen", d.get("decode"))
+        jobs[f"{d['arch']}/prefill"] = (d["arch"], cut, "prefill", d["batch"],
+                                        d["prompt"], {"chunk": d["chunk"],
+                                        "cache_len": d["prompt"] + gen})
+        jobs[f"{d['arch']}/decode"] = (d["arch"], cut, "decode", d["batch"],
+                                       d["prompt"] + gen,
+                                       {"chunk": d["chunk"]})
+    d = TRAIN_FULL
+    jobs[f"{d['arch']}/train"] = (d["arch"], {}, "train", d["batch"],
+                                  d["seq"], {"chunk": d["chunk"],
+                                             "remat": d["remat"],
+                                             "microbatches":
+                                                 d["microbatches"]})
+    for arch, f in FAMILIES.items():
+        s, cut = f["serve"], f.get("cut", {})
+        jobs[f"{arch}/prefill"] = (arch, cut, "prefill", s["batch"],
+                                   s["prompt"], {"chunk": s["chunk"],
+                                   "cache_len": s["prompt"] + s["gen"]})
+        jobs[f"{arch}/decode"] = (arch, cut, "decode", s["batch"],
+                                  s["prompt"] + s["gen"],
+                                  {"chunk": s["chunk"]})
+        t = f.get("train")
+        if t:
+            jobs[f"{arch}/train"] = (arch, cut, "train", t["batch"],
+                                     t["seq"], {"chunk": t["chunk"],
+                                                "remat": t["remat"]})
+    return jobs
+
+
+def count_roofline(arch: str, cut: dict, kind: str, batch: int, seq: int,
+                   *, chunk: int, remat: str = "none",
+                   microbatches: int = 1, cache_len=None) -> dict:
+    """The three-term roofline of one ``kind`` step of ``arch`` (train and
+    prefill: ``batch`` x ``seq`` tokens; decode: one token per sequence
+    against a cache of ``seq``), its operators counted by ``OpCounter`` on
+    a ``meta`` model of the same config (no card time), on ``H100_SXM``'s
+    rates. One card: collective_s is 0."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import specs
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW
+    from repro_torch.roofline import (measure_step, model_bytes,
+                                      model_flops, roofline_terms)
+    from repro_torch.train import make_train_step
+    from repro_torch.train.serve_step import (make_decode_step,
+                                              make_prefill_step)
+    t0 = time.monotonic()
+    cfg = lm_cfg(arch, cut)
+    model = Model(cfg, device="meta")
+    shape = ShapeConfig(kind, seq, batch, kind)
+    if kind == "train":
+        step = make_train_step(model, AdamW(model.parameters()), remat=remat,
+                               attn_chunk=chunk, microbatches=microbatches)
+        args = specs.train_abstract(model, shape)[2:]
+    elif kind == "prefill":
+        step = make_prefill_step(model, attn_chunk=chunk,
+                                 cache_len=cache_len)
+        args = specs.prefill_abstract(model, shape)[1:]
+    else:
+        step = make_decode_step(model)
+        args = specs.decode_abstract(model, shape)[1:]
+    stats = measure_step(step, *args)
+    r = roofline_terms(arch=cfg.name, shape=kind, mesh_name="1", n_chips=1,
+                       stats=stats, memory_per_device=0.0,
+                       model_flops_global=model_flops(cfg, shape, model),
+                       model_bytes_global=model_bytes(cfg, shape, model))
+    return {"kind": kind, "batch": batch, "seq": seq, "flops": r.hlo_flops,
+            "bytes": r.hlo_bytes, "compute_s": r.t_compute,
+            "memory_s": r.t_memory, "collective_s": r.t_collective,
+            "bottleneck": r.bottleneck, "useful_ratio": r.useful_ratio,
+            "roofline_fraction": r.roofline_fraction,
+            "count_s": time.monotonic() - t0}
+
+
+def write_roofline_counts(path: str) -> None:
+    """Every ``roofline_jobs`` step counted, as JSON at ``path`` (the
+    background process the smoke starts: ``python -c``)."""
+    out = {key: count_roofline(arch, cut, kind, batch, seq, **kw)
+           for key, (arch, cut, kind, batch, seq, kw)
+           in roofline_jobs().items()}
+    Path(path).write_text(json.dumps(out))
+
+
+def roofline_record(counts: dict, key: str, measured_ms) -> dict:
+    """The counted roofline of ``key`` beside the measured step time:
+    ``measured_over_bound`` is the measured time over the largest term."""
+    r = dict(counts[key])
+    bound_s = max(r["compute_s"], r["memory_s"], r["collective_s"])
+    r.update(measured_ms=measured_ms,
+             measured_over_bound=measured_ms / 1e3 / bound_s)
+    return r
+
+
+def start_background(root: Path) -> dict:
+    """The smoke's host-only work, started in subprocesses that see no
+    card, while the kernel phases (timed by CUDA events) run: the
+    roofline counts of the LM steps (``write_roofline_counts``) and the
+    dry-run cells (``python -m repro_torch.launch.dryrun``), one process
+    each, one thread each."""
+    import os
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    env = {**os.environ, "PYTHONPATH": f"{root}:{root / 'src'}",
+           "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    counts = DRYRUN_DIR / "roofline_counts.json"
+    procs = {"counts": subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke."
+         f"write_roofline_counts({str(counts)!r})"], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)}
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                arch, "--shape", shape, "--out", str(DRYRUN_DIR)]
+        procs[(arch, shape, multi_pod)] = subprocess.Popen(
+            argv + (["--multi-pod"] if multi_pod else []), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return {"procs": procs, "counts": counts, "t0": time.monotonic()}
+
+
+def wait_background(bg: dict, key) -> str:
+    """Wait for one background process; its output. It must exit 0."""
+    proc = bg["procs"][key]
+    out, _ = proc.communicate(timeout=BACKGROUND_TIMEOUT_S)
+    check(proc.returncode == 0,
+          f"background {key}: exit {proc.returncode}:\n{out[-3000:]}")
+    return out
+
+
+def roofline_counts(bg: dict) -> dict:
+    wait_background(bg, "counts")
+    log(f"roofline counts ready ({time.monotonic() - bg['t0']:.1f}s after "
+        f"their start)")
+    return json.loads(bg["counts"].read_text())
+
+
+def run_lm(device: str, seed: int, counts: dict) -> dict:
     """The lm phase (``{"lm": ...}`` lines): llama3.2-3b at full width and
     depth served through ``launch.serve.main`` with the decode-versus-
     forward check, mixtral-8x22b at full width and 2 layers (prefill and
@@ -2077,7 +2264,13 @@ def run_lm(device: str, seed: int) -> dict:
     e = rel_err(last, fwd)
     check(np.isfinite(last).all() and e < BF16_TOL,
           f"lm decode vs forward: {e:.3e} >= {BF16_TOL}")
+    roofline = {
+        "prefill": roofline_record(counts, f"{d['arch']}/prefill",
+                                   res["batch_prefill_ms"][-1]),
+        "decode": roofline_record(counts, f"{d['arch']}/decode",
+                                  res["batch_decode_ms_per_token"][-1])}
     emit({"lm": {"arch": d["arch"], "params": count_params(model),
+                 "roofline": roofline,
                  "layers": cfg.n_layers, "d_model": cfg.d_model,
                  "vocab_padded": cfg.vocab_padded,
                  "requests": d["requests"], "batch": d["batch"],
@@ -2140,7 +2333,13 @@ def run_lm(device: str, seed: int) -> dict:
     decode_ms = (time.monotonic() - t0) * 1e3 / d["decode"]
     check(bool(torch.isfinite(logits).all()),
           f"lm {d['arch']} decode: finite logits")
+    roofline = {
+        "prefill": roofline_record(counts, f"{d['arch']}/prefill",
+                                   prefill_ms),
+        "decode": roofline_record(counts, f"{d['arch']}/decode",
+                                  decode_ms)}
     emit({"lm": {"arch": d["arch"], "layers": cfg.n_layers,
+                 "roofline": roofline,
                  "cut": f"depth {get_config(d['arch']).n_layers} -> "
                         f"{cfg.n_layers}",
                  "params": count_params(model), "d_model": cfg.d_model,
@@ -2286,14 +2485,16 @@ def mfu(cfg, model, batch: int, seq: int, step_ms: float) -> float:
     return flops / (step_ms / 1e3) / BF16_FLOP_PER_S
 
 
-def run_train(device: str, seed: int) -> None:
+def run_train(device: str, seed: int, counts: dict) -> dict:
     """The train phase (``{"train": ...}`` lines): llama3.2-3b at full
     width and depth (its loss and grad norm three ways before the
-    optimizer exists, then ``launch.train.main`` for TRAIN_FULL's steps,
-    a step split into forward / backward / optimizer and its device
-    profile), the reference's loss property (a reduced llama loses 0.5 in
-    40 steps) and its restart path (a reduced mamba2 ends at step 12 after
-    2 restarts, every loss equal to an uninterrupted run's)."""
+    optimizer exists, then ``launch.train.main`` for TRAIN_FULL's steps
+    with the step's roofline, a step split into forward / backward /
+    optimizer and its device profile), the reference's loss property (a
+    reduced llama loses 0.5 in 40 steps) and its restart path (a reduced
+    mamba2 ends at step 12 after 2 restarts, every loss equal to an
+    uninterrupted run's). Returns the full-size run's losses and
+    step_ms."""
     import contextlib
     import torch
     from repro_torch.configs import get_config
@@ -2342,7 +2543,9 @@ def run_train(device: str, seed: int) -> None:
     prof_batch = train_batch(cfg, d["batch"], d["seq"], d["steps"] + 1,
                              device)
     prof = device_profile(lambda: step(prof_batch), device)
+    roofline = roofline_record(counts, f"{d['arch']}/train", res["step_ms"])
     emit({"train": {"arch": d["arch"], "params": count_params(model),
+                    "roofline": roofline,
                     "layers": cfg.n_layers, "d_model": cfg.d_model,
                     **{k: d[k] for k in ("batch", "seq", "microbatches",
                                          "remat", "chunk", "steps", "lr",
@@ -2354,6 +2557,7 @@ def run_train(device: str, seed: int) -> None:
                     "split": split, "max_memory_allocated": train_peak,
                     "card": CARD}})
     emit({"train": {"arch": d["arch"], "profile": prof, "card": CARD}})
+    full_run = {"losses": res["losses"], "step_ms": res["step_ms"]}
     del model, opt, res, step, batch, prof_batch
     gc.collect()
     if device == "cuda":
@@ -2402,6 +2606,86 @@ def run_train(device: str, seed: int) -> None:
               f"{res['final_step']}, {res['restarts']} restarts, steps run "
               f"{res['loss_steps']}, losses within {TRAIN_REPLAY} of an "
               f"uninterrupted run's ({replay:.3e})")
+    return full_run
+
+
+def run_dp(device: str, full_run: dict) -> None:
+    """The dp phase (a ``{"dp": ...}`` line): ``launch.train
+    --data-parallel 1`` on the card (an NCCL group of one, the debug mesh
+    and the logical rules installed, the gradients reduce-scattered onto
+    the FSDP shards, AdamW on the shards) at TRAIN_FULL's argv for
+    DP_STEPS steps; its losses against the train phase's uninterrupted
+    run at the same steps (the learning rate of the steps before them is
+    the same warmup in both), its step ms beside that run's and the
+    counted bytes of one step's gradient reduction."""
+    import contextlib
+    import torch
+    d = {**TRAIN_FULL, "steps": DP_STEPS}
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import Model
+    peak_reset(device)
+    with contextlib.redirect_stdout(sys.stderr):
+        res = train.main(train_argv(d["arch"], d, TRAIN_DIR / "dp", device)
+                         + ["--data-parallel", "1"])
+    check_uninterrupted(res, d["steps"], f"dp {d['arch']}")
+    ref = full_run["losses"][:d["steps"]]
+    diff = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], ref))
+    red = res["grad_reduction"]
+    meta = Model(get_config(d["arch"]), device="meta")
+    param_bytes = 4 * sum(p.numel() for p in meta.parameters())
+    emit({"dp": {"arch": d["arch"], "data_parallel": 1,
+                 "backend": "nccl" if device == "cuda" else "gloo",
+                 "steps": d["steps"], "losses": res["losses"],
+                 "train_losses": ref, "rel_diff_to_train": diff,
+                 "step_ms": res["step_ms"],
+                 "train_step_ms": full_run["step_ms"],
+                 "grad_reduce_scatter_bytes":
+                     red["collective_bytes"]["reduce-scatter"],
+                 "grad_all_reduce_bytes":
+                     red["collective_bytes"]["all-reduce"],
+                 "grad_collective_count": red["collective_count"],
+                 "param_bytes_fp32": param_bytes,
+                 "max_memory_allocated": peak(device), "card": CARD}})
+    check(diff < DP_AGREE,
+          f"dp: losses within {DP_AGREE} of the train phase's ({diff:.3e})")
+    rs = red["collective_bytes"]
+    check(rs["reduce-scatter"] > 0.9 * param_bytes
+          and rs["reduce-scatter"] + rs["all-reduce"] == param_bytes
+          and rs["all-gather"] == 0,
+          f"dp: each fp32 gradient reduced once, the matrices by "
+          f"reduce-scatter ({rs}, {param_bytes} bytes of parameters)")
+    del res
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def finish_dryrun(bg: dict) -> None:
+    """The dryrun phase (``{"dryrun": ...}`` lines): the dry-run CLI's
+    DRYRUN_CELLS, run by ``start_background`` in subprocesses that see no
+    card (their fake process groups never meet this process's NCCL one):
+    one line per cell with its terms, memory per device and build
+    seconds; every cell ``ok`` with a useful ratio in (0, 1]."""
+    for cell in DRYRUN_CELLS:
+        arch, shape, multi_pod = cell
+        wait_background(bg, cell)
+        mesh = "2x16x16" if multi_pod else "16x16"
+        rep = json.loads((DRYRUN_DIR / f"{arch}__{shape}__{mesh}.json")
+                         .read_text())
+        emit({"dryrun": {k: rep.get(k) for k in (
+            "arch", "shape", "mesh", "placed_mesh", "deviations", "status",
+            "n_chips", "compile_seconds",
+            "param_count", "active_param_count", "model_flops_global",
+            "hlo_flops_per_chip", "hlo_bytes_per_chip",
+            "collective_bytes_per_chip", "collective_breakdown", "terms",
+            "bottleneck", "useful_ratio", "roofline_fraction", "memory")}})
+        check(rep["status"] == "ok" and 0 < rep["useful_ratio"] <= 1,
+              f"dryrun {arch} {shape} {mesh}: status {rep['status'][:200]}, "
+              f"useful ratio {rep.get('useful_ratio')} in (0, 1]\n"
+              f"{rep.get('traceback', '')[-2000:]}")
+    log(f"dryrun cells done ({time.monotonic() - bg['t0']:.1f}s after "
+        f"their start)")
 
 
 def logits_at_index(model, tokens, index: int, chunk: int, audio=None):
@@ -2504,7 +2788,10 @@ def decode_vs_forward(model, s: dict, seed: int, device: str):
         last = res["last_logits"][:prompt.shape[0]]
         times = {"requests": s["requests"], "tok_s": res["throughput_tok_s"],
                  "prefill_ms": res["prefill_ms"],
-                 "decode_ms_per_token": res["decode_ms_per_token"]}
+                 "decode_ms_per_token": res["decode_ms_per_token"],
+                 "warm_prefill_ms": res["batch_prefill_ms"][-1],
+                 "warm_decode_ms_per_token":
+                     res["batch_decode_ms_per_token"][-1]}
     else:
         prompt = torch.as_tensor(np.random.default_rng(seed).integers(
             1, cfg.vocab_size, (s["batch"], s["prompt"])), device=device)
@@ -2534,7 +2821,7 @@ def decode_vs_forward(model, s: dict, seed: int, device: str):
                    fwd.float().cpu().numpy()), times
 
 
-def run_families(device: str, seed: int) -> None:
+def run_families(device: str, seed: int, counts: dict) -> None:
     """The families phase (``{"families": ...}`` lines): mamba2-780m and
     whisper-large-v3 at full size served through ``launch.serve``,
     recurrentgemma-9b (depth cut to one group) and qwen2-vl-72b (depth cut
@@ -2551,8 +2838,7 @@ def run_families(device: str, seed: int) -> None:
 
     for i, (arch, d) in enumerate(FAMILIES.items()):
         full_cfg = get_config(arch)
-        cfg = (dataclasses.replace(full_cfg, n_layers=d["layers"])
-               if d.get("layers") else full_cfg)
+        cfg = lm_cfg(arch, d.get("cut", {}))
         model = Model(cfg, device=device).init(seed=seed + i)
         s = d["serve"]
         peak_reset(device)
@@ -2560,8 +2846,8 @@ def run_families(device: str, seed: int) -> None:
         rec = {"arch": arch, "family": cfg.family,
                "params": count_params(model), "layers": cfg.n_layers,
                "d_model": cfg.d_model,
-               "cut": (f"depth {full_cfg.n_layers} -> {cfg.n_layers}"
-                       if cfg.n_layers != full_cfg.n_layers else None),
+               "cut": ({k: [getattr(full_cfg, k), v] for k, v in
+                        d["cut"].items()} if d.get("cut") else None),
                **times, "batch": s["batch"], "prompt": s["prompt"],
                "gen": s["gen"], "attn_chunk": s["chunk"],
                "decode_vs_forward_rel_err": e,
@@ -2573,6 +2859,14 @@ def run_families(device: str, seed: int) -> None:
         rec["decode_vs_forward_rel_err_fp32"], _ = decode_vs_forward(
             m32, s, seed + i, device)
         del m32
+        rec["roofline"] = {
+            "prefill": roofline_record(
+                counts, f"{arch}/prefill",
+                times.get("warm_prefill_ms", times["prefill_ms"])),
+            "decode": roofline_record(
+                counts, f"{arch}/decode",
+                times.get("warm_decode_ms_per_token",
+                          times["decode_ms_per_token"]))}
         check(rec["decode_vs_forward_rel_err_fp32"] < TOL
               and e < d.get("bf16_tol", BF16_TOL),
               f"families {arch}: decode vs forward {e:.3e} (bf16), "
@@ -2593,6 +2887,8 @@ def run_families(device: str, seed: int) -> None:
                             "mfu": mfu(cfg, model, t["batch"], t["seq"],
                                        tr["step_ms"]),
                             "max_memory_allocated": peak(device)}
+            rec["roofline"]["train"] = roofline_record(
+                counts, f"{arch}/train", tr["step_ms"])
             del tr
         if arch == "mamba2-780m":
             sd = rec["ssd_decay"] = ssd_reference_form(device, seed)
@@ -3236,6 +3532,15 @@ def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, gemm_n: int,
     the ``kernels`` record."""
     from repro_torch.core import gen_spatial, gen_zipf
     from repro_torch.sparse import content_key
+    clock = [time.monotonic()]
+
+    def done(phase: str) -> None:
+        """A phase's memory and guard lines, and its seconds."""
+        memory_line(phase, device)
+        guard_line(phase)
+        now = time.monotonic()
+        emit({"phase_s": {"phase": phase, "seconds": now - clock[0]}})
+        clock[0] = now
 
     t0 = time.monotonic()
     spatial = gen_spatial(spatial_n, seed=seed)
@@ -3250,46 +3555,44 @@ def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, gemm_n: int,
                   "bs": 32},
                  {"name": f"zipf_{zipf_n}_bs128", "A": zipf, "bs": 128}],
         members, seed, timer)
-    memory_line("matvec", device)
-    guard_line("matvec")
+    done("matvec")
 
     r, tuners = run_selector(device, serve_n,
                              [(n, spatial if n == spatial_n else None)
                               for n in unserved_ns], members, seed, timer)
     for name, recs in r.items():
         results[name] += recs
-    memory_line("selector", device)
-    guard_line("selector")
+    done("selector")
 
     r, l, served = run_engine(device, engine_pop, timer)
     for name, recs in r.items():
         results[name] += recs
     for name, n in l.items():
         launches[name] += n
-    memory_line("engine", device)
-    guard_line("engine")
+    done("engine")
 
     population = served["population"]
     l = run_charloop(device, tuners, population, served.pop("store"),
                      charloop_corpus)
     for name, n in l.items():
         launches[name] += n
-    memory_line("charloop", device)
-    guard_line("charloop")
+    done("charloop")
 
     r, l = run_mutate(device, spatial, tuners[1], population, seed, timer)
     for name, recs in r.items():
         results[name] += recs
     for name, n in l.items():
         launches[name] += n
-    memory_line("mutate", device)
-    guard_line("mutate")
+    done("mutate")
 
     for name, n in run_sharded(device, spatial, zipf, tuners[1], population,
                                seed, timer).items():
         launches[name] += n
-    memory_line("sharded", device)
-    guard_line("sharded")
+    done("sharded")
+
+    # host-only work (roofline counts, dry-run cells) beside the kernel
+    # phases, whose times are CUDA events
+    bg = start_background(Path(__file__).resolve().parent)
 
     # each with the library call that computes A @ A on it
     gemm_inputs = [{"name": f"spatial_{gemm_n}_bs32",
@@ -3300,8 +3603,7 @@ def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, gemm_n: int,
     r, l = run_spgemm(device, gemm_inputs, members, member_keys, seed, timer)
     results.update(r)
     launches.update(l)
-    memory_line("spgemm", device)
-    guard_line("spgemm")
+    done("spgemm")
 
     add_inputs = [{"name": f"spatial_{spatial_n}_bs32+seed1", "A": spatial,
                    "B": gen_spatial(spatial_n, seed=seed + 1), "bs": 32},
@@ -3312,29 +3614,30 @@ def run(device: str, spatial_n: int, zipf_n: int, bucket_ns, gemm_n: int,
     r, l = run_spadd(device, add_inputs, add_pairs, seed, timer)
     results.update(r)
     launches.update(l)
-    memory_line("spadd", device)
-    guard_line("spadd")
+    done("spadd")
 
     for phase, fn, dims in (("moe", run_moe, MOE_DIMS),
                             ("flash", run_flash, FLASH_DIMS)):
         r, l = fn(device, dims, seed, timer)
         results.update(r)
         launches.update(l)
-        memory_line(phase, device)
-        guard_line(phase)
+        done(phase)
 
-    for name, n in run_lm(device, seed).items():
+    counts = roofline_counts(bg)
+    for name, n in run_lm(device, seed, counts).items():
         launches[name] += n
-    memory_line("lm", device)
-    guard_line("lm")
+    done("lm")
 
-    run_train(device, seed)
-    memory_line("train", device)
-    guard_line("train")
+    full_run = run_train(device, seed, counts)
+    done("train")
 
-    run_families(device, seed)
-    memory_line("families", device)
-    guard_line("families")
+    run_dp(device, full_run)
+    done("dp")
+
+    run_families(device, seed, counts)
+    done("families")
+
+    finish_dryrun(bg)
 
     kernels = []
     for name, recs in results.items():

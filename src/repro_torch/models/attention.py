@@ -24,6 +24,8 @@ recomputed in the backward pass instead of being kept per chunk.
 """
 from __future__ import annotations
 
+import functools
+
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -32,7 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from .layers import cdtype, mrope, param, pdtype, rope, softcap
-from .partitioning import shard_hint
+from .partitioning import local_apply, shard_hint
 
 NEG_INF = -1e30
 WINDOWED = ("local_attn", "swa_attn")
@@ -60,9 +62,14 @@ def _project_qkv(cfg: ArchConfig, p: Attention, x: torch.Tensor,
     b, s, _ = x.shape
     kvx = x if kv_x is None else kv_x
     sk = kvx.shape[1]
-    q = (x @ p.wq.to(dt)).reshape(b, s, cfg.n_heads, cfg.d_head)
-    k = (kvx @ p.wk.to(dt)).reshape(b, sk, cfg.n_kv_heads, cfg.d_head)
-    v = (kvx @ p.wv.to(dt)).reshape(b, sk, cfg.n_kv_heads, cfg.d_head)
+    # (on a mesh the flat projections are placed by their heads first: a
+    # head dim that does not divide the model axis is not split sharded)
+    q = shard_hint(x @ p.wq.to(dt), "batch", None, "heads").reshape(
+        b, s, cfg.n_heads, cfg.d_head)
+    k = shard_hint(kvx @ p.wk.to(dt), "batch", None, "kv_heads").reshape(
+        b, sk, cfg.n_kv_heads, cfg.d_head)
+    v = shard_hint(kvx @ p.wv.to(dt), "batch", None, "kv_heads").reshape(
+        b, sk, cfg.n_kv_heads, cfg.d_head)
     q = shard_hint(q, "batch", "attn_q_seq", "heads", None)
     k = shard_hint(k, "batch", None, "kv_heads", None)
     v = shard_hint(v, "batch", None, "kv_heads", None)
@@ -99,6 +106,20 @@ def _chunk_step(cap: float, dot_dt: torch.dtype, q_blk, k_c, v_c, mask,
     return m_new, l_new, acc_new
 
 
+_BH = ("batch", "heads", None)
+_BSH = ("batch", None, "heads", None)
+
+
+def _local_chunk_step(cap, dot_dt, q_blk, k_c, v_c, mask, m_run, l_run,
+                      acc):
+    """``_chunk_step``, on a mesh on each (batch, head) shard alone."""
+    return local_apply(
+        functools.partial(_chunk_step, cap, dot_dt),
+        (q_blk, k_c, v_c, mask, m_run, l_run, acc),
+        (_BH + (None,), _BSH, _BSH, None, _BH, _BH, _BH + (None,)),
+        (_BH, _BH, _BH + (None,)))
+
+
 def chunked_attention(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor, *, causal: bool, window: int = 0,
                       chunk: int = 1024, q_offset: int = 0,
@@ -128,10 +149,11 @@ def chunked_attention(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
         q1 = min(q0 + chunk, sq)
         q_pos = q_offset + torch.arange(q0, q1, device=dev)
         first, last = q_offset + q0, q_offset + q1 - 1
-        m_run = torch.full((b, h, q1 - q0), NEG_INF, device=dev)
-        l_run = torch.zeros((b, h, q1 - q0), device=dev)
-        acc = torch.zeros((b, h, q1 - q0, d), device=dev)
         q_blk = qf[:, :, q0:q1]
+        # (like q: on a mesh the running statistics are placed as q is)
+        m_run = torch.full_like(q_blk[..., 0], NEG_INF)
+        l_run = torch.zeros_like(q_blk[..., 0])
+        acc = torch.zeros_like(q_blk)
         for k0 in range(0, sk, chunk):
             k1 = k0 + chunk
             # banded skip: no query of this block sees the chunk
@@ -158,8 +180,8 @@ def chunked_attention(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
             args = (cfg.softcap_attn, dot_dt, q_blk, k_c, v_c, mask,
                     m_run, l_run, acc)
             m_run, l_run, acc = (
-                checkpoint(_chunk_step, *args, use_reentrant=False)
-                if remat else _chunk_step(*args))
+                checkpoint(_local_chunk_step, *args, use_reentrant=False)
+                if remat else _local_chunk_step(*args))
         outs.append(acc / torch.clamp_min(l_run, 1e-30)[..., None])
     out = torch.cat(outs, dim=2)
     return out.transpose(1, 2).to(q.dtype)                  # (B,Sq,H,D)
@@ -254,9 +276,15 @@ def _single_query_attention(cfg: ArchConfig, q, k, v, mask) -> torch.Tensor:
     if rep > 1:
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
-    scale = 1.0 / (cfg.d_head ** 0.5)
+    args = (1.0 / (cfg.d_head ** 0.5), cfg.softcap_attn, q, k, v, mask)
+    # on a mesh each (batch, head) shard alone, k and v placed as q is
+    return local_apply(_single_query, args,
+                       (None, None, _BSH, _BSH, _BSH, None), (_BSH,))
+
+
+def _single_query(scale: float, cap: float, q, k, v, mask) -> torch.Tensor:
     s = torch.einsum("bqhd,bshd->bhqs", q.float() * scale, k.float())
-    s = softcap(s, cfg.softcap_attn)
+    s = softcap(s, cap)
     if mask is not None:
         s = s.masked_fill(~mask[None, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)

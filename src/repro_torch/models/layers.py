@@ -127,7 +127,8 @@ def mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
                          f"half head dim {half}")
     sec_id = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.as_tensor(sections, device=x.device))          # (half,)
+        torch.as_tensor(sections, device=x.device),
+        output_size=half)                                    # (half,)
     pos_sel = torch.movedim(positions3[sec_id], 0, -1)      # (..., S, half)
     ang = pos_sel.float() * _freqs(half, theta, x.device)
     return _rotate(x, ang)

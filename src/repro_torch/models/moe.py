@@ -31,7 +31,8 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from .layers import cdtype, gelu, param, pdtype
-from .partitioning import shard_hint
+from .partitioning import (current_rules, local_apply, logical_to_spec,
+                           shard_hint)
 
 
 class MoE(nn.Module):
@@ -69,7 +70,57 @@ def apply_moe(cfg: ArchConfig, p: MoE, x: torch.Tensor
 
     Returns aux metrics: load_balance_loss (Switch aux), expert_imbalance
     (Eq. 5 over tokens-per-expert), dropped_fraction.
-    """
+
+    On a mesh (``local_apply``) each shard of the batch routes its own
+    tokens over all experts, then runs the experts it holds: all of them
+    with its slice of their hidden dim ("moe_ffn": tensor parallelism,
+    mixtral), or its slice of the experts whole ("experts": expert
+    parallelism, dbrx). Either way its output is a part of a sum over the
+    model axis, and the metrics are a mean over the batch shards."""
+    weights = (p.router, p.wi_gate, p.wi_up, p.wo)
+    rules = current_rules()
+    if rules is None:
+        return _moe(cfg, x, *weights)
+    from torch.distributed.tensor import DTensor
+    offset = 0
+    if isinstance(p.wi_gate, DTensor):
+        from torch.distributed.tensor._utils import \
+            compute_local_shape_and_global_offset
+        from ..launch.sharding import placements
+        w = p.wi_gate
+        _, off = compute_local_shape_and_global_offset(
+            w.shape, w.device_mesh,
+            placements(w.device_mesh, logical_to_spec(_WI)))
+        offset = off[0]
+    split = {a for a in (rules.get("experts"), rules.get("moe_ffn")) if a}
+    batch = rules.get("batch") or ()
+    over_batch = {a: "avg" for a in
+                  (batch if isinstance(batch, tuple) else (batch,))}
+
+    def layer(*args):
+        out, aux = _moe(cfg, *args, expert_offset=offset)
+        return (out,) + tuple(aux[k] for k in _AUX)
+
+    out, *aux = local_apply(
+        layer, (x,) + weights,
+        (("batch", None, None), (None, None), _WI, _WI, _WO),
+        (("batch", None, None),) + ((),) * len(_AUX),
+        [{a: "sum" for a in split}] + [over_batch] * len(_AUX))
+    return out, dict(zip(_AUX, aux))
+
+
+_AUX = ("load_balance_loss", "expert_imbalance", "dropped_fraction")
+_WI = ("experts", None, "moe_ffn")           # (E, d, ff)
+_WO = ("experts", "moe_ffn", None)           # (E, ff, d)
+
+
+def _moe(cfg: ArchConfig, x: torch.Tensor, router: torch.Tensor,
+         wi_gate: torch.Tensor, wi_up: torch.Tensor, wo: torch.Tensor,
+         expert_offset: int = 0
+         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The layer on plain tensors; the weights hold the experts
+    ``expert_offset`` .. ``expert_offset + len(wi_gate)`` (all of them but
+    on a mesh with expert parallelism)."""
     dt = cdtype(cfg)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
@@ -77,7 +128,7 @@ def apply_moe(cfg: ArchConfig, p: MoE, x: torch.Tensor
     dev = x.device
 
     # float32 routing logits from x and the router in x's dtype
-    logits = x.float() @ p.router.to(x.dtype).float()          # (B,S,E)
+    logits = x.float() @ router.to(x.dtype).float()            # (B,S,E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = top_k_lower_index(probs, k)           # (B,S,K)
     gate_vals = gate_vals / torch.clamp_min(
@@ -103,7 +154,8 @@ def apply_moe(cfg: ArchConfig, p: MoE, x: torch.Tensor
                             device=dev)
     gate_slot[bi, gate_idx, slot] = torch.where(
         keep, gate_vals, torch.zeros_like(gate_vals))
-    inv, gate_slot = inv[..., :cap], gate_slot[..., :cap]
+    held = slice(expert_offset, expert_offset + wi_gate.shape[0])
+    inv, gate_slot = inv[:, held, :cap], gate_slot[:, held, :cap]
 
     # ---- dispatch: gather tokens into (B, E, C, d)
     x_pad = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
@@ -111,7 +163,7 @@ def apply_moe(cfg: ArchConfig, p: MoE, x: torch.Tensor
     x_e = shard_hint(x_e, "batch", "experts", None, "expert_dm")
 
     # ---- expert FFN
-    wig, wiu, wo = p.wi_gate.to(dt), p.wi_up.to(dt), p.wo.to(dt)
+    wig, wiu, wo = wi_gate.to(dt), wi_up.to(dt), wo.to(dt)
     g = torch.einsum("becd,edf->becf", x_e, wig)
     u = torch.einsum("becd,edf->becf", x_e, wiu)
     g = shard_hint(g, "batch", "experts", None, "moe_ffn")

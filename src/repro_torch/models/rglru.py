@@ -23,7 +23,7 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from .layers import causal_depthwise_conv1d, cdtype, gelu, param, pdtype
-from .partitioning import shard_hint
+from .partitioning import local_apply, shard_hint
 
 RGLRU_C = 8.0
 
@@ -69,6 +69,9 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor
     return a, b
 
 
+_BSW = ("batch", None, "ffn")
+
+
 def _rglru_core(p: RGLRU, x: torch.Tensor, h0: Optional[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, W) -> (y (B, S, W), h_final (B, W)). float32 math."""
@@ -82,7 +85,8 @@ def _rglru_core(p: RGLRU, x: torch.Tensor, h0: Optional[torch.Tensor]
         # fold the initial state in as a virtual step 0
         a = torch.cat([torch.ones_like(a[:, :1]), a], dim=1)
         b = torch.cat([h0[:, None].float(), b], dim=1)
-    _, h = linear_scan(a, b)
+    # on a mesh each (batch, channel) shard scans alone
+    _, h = local_apply(linear_scan, (a, b), (_BSW, _BSW), (_BSW, _BSW))
     if h0 is not None:
         h = h[:, 1:]
     return h, h[:, -1]

@@ -29,7 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from .layers import (causal_depthwise_conv1d, cdtype, gated_rmsnorm, param,
                      pdtype)
-from .partitioning import shard_hint
+from .partitioning import local_apply, shard_hint
 
 
 class SSD(nn.Module):
@@ -95,6 +95,17 @@ def _chunk_step(h_prev, x_k, dt_k, b_k, c_k):
     return h_new, y_intra + y_inter
 
 
+_BHNP = ("batch", "heads", None, None)
+_BQHP = ("batch", None, "heads", None)
+
+
+def _local_chunk_step(h_prev, x_k, dt_k, b_k, c_k):
+    """``_chunk_step``, on a mesh on each (batch, head) shard alone."""
+    return local_apply(_chunk_step, (h_prev, x_k, dt_k, b_k, c_k),
+                       (_BHNP, _BQHP, _BQHP[:3], ("batch", None, None),
+                        ("batch", None, None)), (_BHNP, _BQHP))
+
+
 def _chunk_scan(cfg: ArchConfig, x, dt, bmat, cmat, h0):
     """Chunked SSD. x: (B,S,H,P); dt: (B,S,H); bmat/cmat: (B,S,N).
 
@@ -111,8 +122,8 @@ def _chunk_scan(cfg: ArchConfig, x, dt, bmat, cmat, h0):
     for c0 in range(0, s, q):
         args = (h, x[:, c0:c0 + q], dt[:, c0:c0 + q], bmat[:, c0:c0 + q],
                 cmat[:, c0:c0 + q])
-        h, y = (checkpoint(_chunk_step, *args, use_reentrant=False)
-                if remat else _chunk_step(*args))
+        h, y = (checkpoint(_local_chunk_step, *args, use_reentrant=False)
+                if remat else _local_chunk_step(*args))
         ys.append(y)
     return torch.cat(ys, dim=1), h
 

@@ -39,7 +39,7 @@ from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .layers import (apply_ffn, apply_norm, cdtype, init_ffn, init_norm,
                      param, pdtype, sinusoidal_positions, softcap)
-from .partitioning import shard_hint
+from .partitioning import current_rules, local_apply, shard_hint
 
 MOE_AUX_KEYS = ("load_balance_loss", "expert_imbalance", "dropped_fraction")
 ATTN_KINDS = ("attn", "local_attn", "swa_attn")
@@ -59,6 +59,17 @@ def _(x, name):
 
 
 checkpoint_name.register_autograd(lambda ctx, grad: (grad, None))
+
+
+def _tag(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``checkpoint_name`` of ``x``; a DTensor's local shard is tagged (the
+    custom op has no DTensor sharding rule), keeping its placements."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return checkpoint_name(x, name)
+    return DTensor.from_local(checkpoint_name(x.to_local(), name),
+                              x.device_mesh, x.placements, run_check=False,
+                              shape=x.shape, stride=x.stride())
 
 _MM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 REMAT_POLICIES = {
@@ -174,6 +185,14 @@ def draw_params(params: nn.Module, generator: torch.Generator) -> None:
 # Block apply
 # ---------------------------------------------------------------------------
 
+def _gathered(h: torch.Tensor) -> torch.Tensor:
+    """A sublayer's input with the sequence whole: on a mesh the residual
+    stream is sequence-sharded between layers ("act_seq") and gathered
+    before each mixer and FFN, the all-gather GSPMD inserts for the
+    reference (the identity on one card)."""
+    return shard_hint(h, "batch", None, None)
+
+
 def _apply_block(cfg: ArchConfig, kind: str, p: Block, x: torch.Tensor, *,
                  mode: str, cache: Optional[Dict],
                  pos: Optional[Union[int, torch.Tensor]],
@@ -185,11 +204,11 @@ def _apply_block(cfg: ArchConfig, kind: str, p: Block, x: torch.Tensor, *,
     """One block. Returns (x, new_cache_dict, aux_metrics). ``tag`` marks
     the sublayer outputs for the ``"save_outs"`` remat policy."""
     def named(y, name):
-        return checkpoint_name(y, name) if tag else y
+        return _tag(y, name) if tag else y
 
     new_cache: Dict[str, Any] = {}
     aux: Dict[str, torch.Tensor] = {}
-    h = apply_norm(cfg, p.norm1, x)
+    h = _gathered(apply_norm(cfg, p.norm1, x))
     if kind in ATTN_KINDS:
         if mode == "decode":
             y, c_new = attn_mod.decode_attention(cfg, p.mixer, h,
@@ -227,7 +246,7 @@ def _apply_block(cfg: ArchConfig, kind: str, p: Block, x: torch.Tensor, *,
     x = x + named(y, "mixer_out")
 
     if hasattr(p, "cross"):
-        h = apply_norm(cfg, p.norm_cross, x)
+        h = _gathered(apply_norm(cfg, p.norm_cross, x))
         if mode == "decode":
             ck = cache["cross"]
             y, _ = attn_mod.decode_attention(
@@ -246,7 +265,7 @@ def _apply_block(cfg: ArchConfig, kind: str, p: Block, x: torch.Tensor, *,
         x = x + named(y, "cross_out")
 
     if cfg.d_ff > 0:
-        h = apply_norm(cfg, p.norm2, x)
+        h = _gathered(apply_norm(cfg, p.norm2, x))
         if cfg.is_moe:
             y, aux = moe_mod.apply_moe(cfg, p.ffn, h)
         else:
@@ -332,12 +351,48 @@ def apply_stack(cfg: ArchConfig, blocks, x: torch.Tensor,
 # Embedding / head
 # ---------------------------------------------------------------------------
 
+def _vocab_pick(src: torch.Tensor, idx: torch.Tensor, vdim: int,
+                src_axes: tuple, out_axes: tuple, pick) -> torch.Tensor:
+    """``pick(src, idx)``: the entries of ``src``'s vocab dim ``vdim`` at
+    the token ids ``idx`` (B, S); ``src_axes`` and ``out_axes`` are the
+    logical axes of ``src`` and of the result. On a mesh the vocab dim is
+    sharded over the model axis ("vocab") and each shard picks the ids in
+    its own range (0 for the others): a sum over the model axis, as GSPMD
+    partitions the reference's gathers (DTensor in torch 2.11 cannot
+    shard the lookup's backward, and its gather strategy fails to reduce
+    the target pick's masked partial)."""
+    from torch.distributed.tensor import DTensor
+    rules = current_rules()
+    if rules is None or not isinstance(src, DTensor):
+        return pick(src, idx)
+    src = shard_hint(src, *src_axes)
+    offset = _local_offset(src)[vdim]
+
+    def local(t, ids):
+        n = t.shape[vdim]
+        j = ids - offset
+        inside = (j >= 0) & (j < n)
+        got = pick(t, j.clamp(0, n - 1))
+        inside = inside.reshape(inside.shape + (1,) * (got.dim()
+                                                       - inside.dim()))
+        return torch.where(inside, got, torch.zeros_like(got))
+
+    return local_apply(local, (src, idx), (src_axes, ("batch", None)),
+                       (out_axes,), [{rules["vocab"]: "sum"}])
+
+
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` (vocab-parallel on a mesh: ``_vocab_pick``)."""
+    return _vocab_pick(table, tokens, 0, ("vocab", None),
+                       ("batch", None, None), lambda t, ids: t[ids])
+
+
 def embed_tokens(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
                  positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token embeddings, plus absolute sinusoidal positions for configs
     without RoPE (whisper; ``positions`` default 0..S-1)."""
     dt = cdtype(cfg)
-    x = params.embed[tokens].to(dt)
+    x = _lookup(params.embed, tokens).to(dt)
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
     if cfg.rope_theta <= 0:
@@ -363,12 +418,27 @@ def logits_at(cfg: ArchConfig, params: Params,
     return shard_hint(lg, "batch", None, "vocab")
 
 
+def _target_logit(lg: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``lg[..., t]`` (vocab-parallel on a mesh: ``_vocab_pick``)."""
+    return _vocab_pick(lg, t, -1, ("batch", None, "vocab"),
+                       ("batch", None),
+                       lambda x, ids: x.gather(-1, ids[..., None])[..., 0])
+
+
+def _local_offset(t) -> tuple:
+    """Where this rank's shard of the DTensor ``t`` starts, per dim."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    return compute_local_shape_and_global_offset(t.shape, t.device_mesh,
+                                                 t.placements)[1]
+
+
 def _xent_chunk(cap: float, h_c, w, t_c, m_c):
     """Summed masked negative log-likelihood of one sequence chunk."""
     lg = softcap((h_c @ w).float(), cap)
     lg = shard_hint(lg, "batch", None, "vocab")
     lse = torch.logsumexp(lg, dim=-1)
-    tgt = torch.gather(lg, -1, t_c[..., None])[..., 0]
+    tgt = _target_logit(lg, t_c)
     return ((lse - tgt) * m_c).sum()
 
 
@@ -410,8 +480,8 @@ def _encode(cfg: ArchConfig, params: Params, audio_embed: torch.Tensor,
     dt = cdtype(cfg)
     x = audio_embed.to(dt)
     pad = encoder_pad_len(cfg) - x.shape[1]
-    if pad > 0:
-        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+    if pad > 0:     # (a concatenation: DTensor in torch 2.11 fails to pad)
+        x = torch.cat([x, x.new_zeros((x.shape[0], pad, x.shape[2]))], 1)
     x = x + sinusoidal_positions(torch.arange(x.shape[1], device=x.device),
                                  cfg.d_model).to(dt)
     x = shard_hint(x, "batch", None, None)
@@ -448,7 +518,7 @@ def forward_train(cfg: ArchConfig, params: Params,
     x, _, aux = apply_stack(cfg, params.blocks, x, mode="train",
                             cross_enc=cross_enc, enc_valid=enc_valid,
                             remat=remat, attn_chunk=attn_chunk)
-    x = apply_norm(cfg, params.final_norm, x)
+    x = _gathered(apply_norm(cfg, params.final_norm, x))
     targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     mask = batch.get("loss_mask")
     mask = (torch.ones(tokens.shape, device=tokens.device) if mask is None
@@ -458,7 +528,11 @@ def forward_train(cfg: ArchConfig, params: Params,
     metrics = {"loss": loss,
                **{k: v / cfg.n_groups for k, v in aux.items()}}
     if cfg.is_moe:
-        loss = loss + 0.01 * aux["load_balance_loss"] / cfg.n_groups
+        # both scalars replicated first: on a mesh their partial sums
+        # carry different placements, whose sum's backward DTensor cannot
+        # view (identities on one card)
+        loss = (shard_hint(loss) + 0.01
+                * shard_hint(aux["load_balance_loss"]) / cfg.n_groups)
     return loss, metrics
 
 
@@ -499,7 +573,7 @@ def forward_prefill(cfg: ArchConfig, params: Params,
     x, caches, _ = apply_stack(cfg, params.blocks, x, mode="prefill",
                                cross_enc=cross_enc, enc_valid=enc_valid,
                                attn_chunk=attn_chunk, cache_len=cache_len)
-    x = apply_norm(cfg, params.final_norm, x)
+    x = _gathered(apply_norm(cfg, params.final_norm, x))
     logits = logits_at(cfg, params, x[:, -1:])[:, 0]
     return logits, caches
 

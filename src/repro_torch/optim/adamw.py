@@ -12,7 +12,10 @@ are taken at the step being made (the counter moves first).
 Its state is ``step`` (the updates made) and float32 ``m`` and ``v`` per
 parameter; ``state_dict`` holds all three and ``load_state_dict`` brings
 them back. ``opt_state(names)`` / ``load_opt_state`` give the same state as
-the reference's functional ``OptState`` keyed by parameter name.
+the reference's functional ``OptState`` keyed by parameter name. The
+parameters may be DTensors (a data-parallel run's shards, a dry run's
+placed parameters): the moments take their placements, and the grad norm
+is the global one.
 """
 from __future__ import annotations
 
@@ -54,8 +57,10 @@ class AdamW(torch.optim.Optimizer):
     def _moments(self, p: torch.Tensor):
         st = self.state[p]
         if "m" not in st:
-            st["m"] = torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+            # zeros_like keeps a DTensor parameter's placements: the
+            # moments of a shard are shards
+            st["m"] = torch.zeros_like(p, dtype=torch.float32,
+                                       memory_format=torch.contiguous_format)
             st["v"] = torch.zeros_like(st["m"])
         return st["m"], st["v"]
 
@@ -75,7 +80,7 @@ class AdamW(torch.optim.Optimizer):
                  for p in params]
         dev = params[0].device
         if self.grad_clip_norm is not None:
-            norms = [torch.linalg.vector_norm(g, dtype=torch.float32)
+            norms = [full_value(torch.linalg.vector_norm(g, dtype=torch.float32))
                      for g in grads]
             gnorm = torch.sqrt(sum(n * n for n in norms))
             scale = torch.clamp(self.grad_clip_norm
@@ -130,6 +135,27 @@ class AdamW(torch.optim.Optimizer):
         into the optimizer."""
         for n, p in zip(names, self._params()):
             m, v = self._moments(p)
-            m.copy_(torch.as_tensor(state.m[n]))
-            v.copy_(torch.as_tensor(state.v[n]))
+            copy_full_into(m, state.m[n])
+            copy_full_into(v, state.v[n])
         self.step_count = int(state.step)
+
+
+def full_value(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's value as one tensor on every rank (a reduction over its
+    shards or partial sums); any other tensor itself."""
+    full = getattr(t, "full_tensor", None)
+    return full() if full is not None else t
+
+
+@torch.no_grad()
+def copy_full_into(dst: torch.Tensor, src) -> None:
+    """Copy the full value ``src`` into ``dst``; a DTensor ``dst`` takes
+    its own shard of it."""
+    src = torch.as_tensor(src)
+    if hasattr(dst, "to_local"):
+        from torch.distributed.tensor import distribute_tensor
+        src = distribute_tensor(src.to(dst.device, dst.dtype),
+                                dst.device_mesh, dst.placements,
+                                src_data_rank=None).to_local()
+        dst = dst.to_local()
+    dst.copy_(src)

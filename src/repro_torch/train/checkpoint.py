@@ -38,6 +38,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..optim.adamw import full_value
+
 
 def _flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     if isinstance(tree, dict):
@@ -179,11 +181,16 @@ def train_state_tree(model: torch.nn.Module, optimizer) -> Dict[str, Any]:
     """The training state as a checkpoint tree: ``params`` (the model's
     ``state_dict()``) and ``opt`` (the optimizer's ``step``, ``m`` and
     ``v`` by parameter name). The tensors are the live ones: ``save``
-    copies them, ``restore`` returns new ones."""
+    copies them, ``restore`` returns new ones. A DTensor (the sharded
+    moments of a data-parallel run) is gathered whole, so every rank of
+    its mesh calls this."""
     names = [n for n, _ in model.named_parameters()]
     st = optimizer.opt_state(names)
-    return {"params": dict(model.state_dict()),
-            "opt": {"step": torch.tensor(st.step), "m": st.m, "v": st.v}}
+    full = {k: {n: full_value(t) for n, t in d.items()} for k, d in
+            (("params", model.state_dict()), ("m", st.m), ("v", st.v))}
+    return {"params": full["params"],
+            "opt": {"step": torch.tensor(st.step), "m": full["m"],
+                    "v": full["v"]}}
 
 
 def load_train_state(model: torch.nn.Module, optimizer,

@@ -785,9 +785,15 @@ def test_replay_after_restore_is_exact(tmp_path):
 
 
 def test_driver_refuses_data_parallel_and_a_missing_card(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """``--data-parallel`` runs (``tests/test_torch_sharding.py``); a
+    count that does not split the batch, or cards it lacks, raise."""
+    with pytest.raises(ValueError, match="does not split"):
         train.main(["--arch", "llama3.2-3b", "--reduced",
-                    "--data-parallel", "2", "--device", CPU])
+                    "--data-parallel", "3", "--device", CPU])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.main(["--arch", "llama3.2-3b", "--reduced",
+                        "--data-parallel", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--arch", "llama3.2-3b", "--reduced", "--steps",
