@@ -239,14 +239,14 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      reduction (every parameter's fp32 gradient once, the matrices by
      reduce-scatter);
   6g. dryrun phase, ``{"dryrun": ...}`` lines: ``python -m
-     repro_torch.launch.dryrun`` for llama3.2-3b ``train_4k`` on 16 x 16 and
-     mixtral-8x22b ``decode_32k`` on 2 x 16 x 16, each in a background
-     process started with the counts (no card visible; their fake process
-     groups of 256 and 512 ranks never meet this process's NCCL one),
-     read after the families phase: each cell's terms, memory per device,
-     build seconds, the mesh its tensors were placed on and its
-     deviations from the reference's layout; both cells ``ok`` with a
-     useful ratio in (0, 1].
+     repro_torch.launch.dryrun`` for llama3.2-3b ``train_4k`` on 16 x 16
+     and on 2 x 16 x 16 (context parallelism, and the gradients'
+     all-reduce over the pods) and mixtral-8x22b ``decode_32k`` on 2 x 16
+     x 16, each in a background process started with the counts (no card
+     visible; their fake process groups of 256 and 512 ranks never meet
+     this process's NCCL one), read after the families phase: each cell's
+     terms, memory per device, build seconds and collectives; every cell
+     ``ok`` with a useful ratio in (0, 1].
 Each phase ends with a ``{"phase_s": ...}`` line, its seconds.
   7. per kernel x input, at the main path's shapes: the kernel against its
      plain version over the whole output (spgemm, moe and flash within
@@ -446,8 +446,11 @@ FAMILIES = {
 # TRAIN_FULL's argv for 3 steps, its losses against the train phase's
 DP_STEPS = 3
 DP_AGREE = 1e-6
-# the dryrun phase: the dry-run CLI on two full-size cells, one per mesh
+# the dryrun phase: the dry-run CLI on three full-size cells: llama3.2-3b
+# train_4k (context parallelism: its 24 heads do not divide the model
+# axis) on both meshes, mixtral-8x22b decode_32k on the pods
 DRYRUN_CELLS = (("llama3.2-3b", "train_4k", False),
+                ("llama3.2-3b", "train_4k", True),
                 ("mixtral-8x22b", "decode_32k", True))
 DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "dryrun_smoke"
 BACKGROUND_TIMEOUT_S = 900
@@ -2674,12 +2677,12 @@ def finish_dryrun(bg: dict) -> None:
         rep = json.loads((DRYRUN_DIR / f"{arch}__{shape}__{mesh}.json")
                          .read_text())
         emit({"dryrun": {k: rep.get(k) for k in (
-            "arch", "shape", "mesh", "placed_mesh", "deviations", "status",
-            "n_chips", "compile_seconds",
+            "arch", "shape", "mesh", "status", "n_chips", "compile_seconds",
             "param_count", "active_param_count", "model_flops_global",
             "hlo_flops_per_chip", "hlo_bytes_per_chip",
             "collective_bytes_per_chip", "collective_breakdown", "terms",
-            "bottleneck", "useful_ratio", "roofline_fraction", "memory")}})
+            "bottleneck", "useful_ratio", "roofline_fraction", "memory",
+            "collective_count")}})
         check(rep["status"] == "ok" and 0 < rep["useful_ratio"] <= 1,
               f"dryrun {arch} {shape} {mesh}: status {rep['status'][:200]}, "
               f"useful ratio {rep.get('useful_ratio')} in (0, 1]\n"

@@ -7,43 +7,45 @@ on abstract tensors and computes nothing: this entry point takes no
 ``--device``, by design. For each cell it
 
   1. starts a fake process group of 256 (16 x 16) or 512 (2 x 16 x 16)
-     ranks in this process (``FakeStore``; collectives return at once) and
-     builds the production mesh on it;
+     ranks in this process (``FakeStore``; collectives return at once) as
+     the busiest rank, and builds the production mesh on it: (data,
+     model) or (pod, data, model), the pod axis its own;
   2. places a ``Model(cfg, device="meta")``'s parameters as DTensors of
-     ``param_specs``'s placements, the batch (and the decode cache) of
-     ``batch_specs`` / ``cache_specs``, and installs ``logical_rules``;
+     ``param_specs``'s placements (replicated over the pods), the batch
+     (and the decode cache) of ``batch_specs`` / ``cache_specs`` (batch
+     over (pod, data)), and installs ``logical_rules`` as they stand;
   3. runs one train step (``make_train_step`` with ``grad_shardings``,
-     AdamW's moments on the parameters' shards), prefill step or decode
-     step on the abstract inputs of ``specs`` under ``OpCounter`` (per-
-     chip FLOPs, bytes and collectives of this rank's local operators) and
-     ``MemTracker`` (peak bytes of what the step allocates on this rank,
-     followed through the DTensor step directly on meta tensors);
+     AdamW's moments on the parameters' shards: each gradient is
+     reduce-scattered over "data" and all-reduced over "pod"), prefill
+     step or decode step on the abstract inputs of ``specs`` under
+     ``OpCounter`` (per-chip FLOPs, bytes and collectives of this rank's
+     local operators) and ``MemTracker`` (peak bytes of what the step
+     allocates on this rank, followed through the DTensor step directly
+     on meta tensors);
   4. writes the report to ``reports/dryrun_torch/<arch>__<shape>__<mesh>.
      json`` (or ``--out``), and destroys the group.
 
-The 2 x 16 x 16 cells place their tensors on a 32 x 16 mesh, the pod axis
-merged into the data axis (``placement_mesh_shape``): DTensor in torch
-2.11 cannot shard one tensor dim over two mesh dims, which the batch over
-(pod, data) needs. The batch splits 32 ways, as in the reference; the
-parameters' data-axis dims split 32 ways too, where the reference
-replicates them over the two pods (half their bytes a device, and no
-separate cross-pod reduction).
+The counted rank is the one at coordinate (0, ..., 0, tp - 1): the last
+of the model axis. Where ``attn_q_seq`` splits the queries' sequence over
+that axis (context parallelism), the port's causal skip leaves each rank
+the KV chunks at or below its rows' diagonal, so the last rank computes
+every chunk of its rows and rank 0 the fewest; the step waits for the
+slowest rank, and the reference's XLA program, which masks every chunk
+on every device, is compared with this one.
 
 The report has the reference's keys, without ``cost_analysis`` (the
 counter is the one source; ``roofline.analysis`` says why) and with
-``collective_count``, ``placed_mesh`` (the mesh the tensors were placed
-on, e.g. ``32x16`` for a ``2x16x16`` cell) and ``deviations`` (each way
-the placement departs from the reference's layout: the rules
-``PORT_RULES`` changed, the merged pod axis) added; ``hlo_*_per_chip`` hold the counted
-operators' totals. ``memory``: ``argument_bytes`` are the local shard
-bytes of the step's inputs (params, AdamW state and batch; params and
-batch; params, cache and token), ``output_bytes`` those of its outputs,
-``alias_bytes`` those donated as the reference donates them (params and
-optimizer state in train, the cache in decode, updated in place),
-``temp_bytes`` MemTracker's peak, and ``per_device_total`` = arguments +
-outputs - aliases + temporaries. ``compile_seconds`` is the cell's build
-time. Nothing global is set at import (the reference's ``XLA_FLAGS`` line
-has no counterpart).
+``collective_count`` (per primitive) added; ``hlo_*_per_chip`` hold the
+counted operators' totals. ``memory``: ``argument_bytes`` are the local
+shard bytes of the step's inputs (params, AdamW state and batch; params
+and batch; params, cache and token), ``output_bytes`` those of its
+outputs, ``alias_bytes`` those donated as the reference donates them
+(params and optimizer state in train, the cache in decode, updated in
+place), ``temp_bytes`` MemTracker's peak on ``meta`` (where the step
+runs), and ``per_device_total`` =
+arguments + outputs - aliases + temporaries. ``compile_seconds`` is the
+cell's build time. Nothing global is set at import (the reference's
+``XLA_FLAGS`` line has no counterpart).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-3b \\
@@ -83,27 +85,18 @@ MESHES = {False: ((16, 16), ("data", "model")),
           True: ((2, 16, 16), ("pod", "data", "model"))}
 
 
-# The reference's rules with one change: no context parallelism. The
-# port's chunked attention takes each query block as a slice of the
-# sequence, so a sequence-sharded q would be gathered for every block; q
-# stays replicated over the model axis where the heads do not divide it
-# (llama3.2-3b, phi3, phi4, whisper at 16), and every chip of that axis
-# counts the whole attention.
-PORT_RULES = {"attn_q_seq": None}
-
-
 def mesh_name_of(multi_pod: bool, mesh_override=None) -> str:
     shape = (mesh_override or MESHES[multi_pod])[0]
     return "x".join(str(s) for s in shape)
 
 
 @contextlib.contextmanager
-def fake_group(world: int):
-    """A fake process group of ``world`` ranks in this process (this is
-    rank 0), destroyed on exit."""
+def fake_group(world: int, rank: int):
+    """A fake process group of ``world`` ranks in this process, which is
+    rank ``rank``, destroyed on exit."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=world)
     try:
         yield
@@ -111,15 +104,15 @@ def fake_group(world: int):
         dist.destroy_process_group()
 
 
-def placement_mesh_shape(mshape, maxes):
-    """The mesh the cell's tensors are placed on: the pod axis merged into
-    the data axis (2 x 16 x 16 -> 32 x 16), since DTensor (torch 2.11)
-    shards no tensor dim over two mesh dims; other meshes as they are."""
-    if "pod" not in maxes:
-        return tuple(mshape), tuple(maxes)
-    sizes = dict(zip(maxes, mshape))
-    return ((sizes["pod"] * sizes["data"], sizes["model"]),
-            ("data", "model"))
+def busiest_rank(mshape, maxes) -> int:
+    """The rank at coordinate (0, ..., 0, tp - 1), the last of the model
+    axis (row-major ranks, as ``init_device_mesh`` lays them out): with
+    context parallelism it computes the most attention."""
+    i = list(maxes).index(shd.TP_AXIS)
+    stride = 1
+    for s in mshape[i + 1:]:
+        stride *= s
+    return (mshape[i] - 1) * stride
 
 
 def _place(t: torch.Tensor, sharding) -> torch.Tensor:
@@ -173,9 +166,8 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.distributed.tensor.experimental import implicit_replication
     t0 = time.time()
-    with fake_group(n_chips):
-        placed = placement_mesh_shape(mshape, maxes)
-        mesh = make_mesh("cpu", *placed)
+    with fake_group(n_chips, busiest_rank(mshape, maxes)):
+        mesh = make_mesh("cpu", tuple(mshape), tuple(maxes))
         model = Model(cfg, device="meta")
         params_n = count_params(model)
         active_n = count_active_params(cfg, model)
@@ -184,13 +176,6 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
         seq_for_rules = shape.seq_len if shape.kind != "decode" else None
         rules = shd.logical_rules(cfg, mesh, batch_size=shape.global_batch,
                                   seq_len=seq_for_rules)
-        deviations = [f"{k}: {rules[k]} -> {v} (no context parallelism)"
-                      for k, v in PORT_RULES.items() if rules[k] != v]
-        rules.update(PORT_RULES)
-        if "pod" in maxes:
-            deviations.append(
-                "pod merged into data: parameters' data-axis dims split "
-                f"{placed[0][0]} ways, no cross-pod reduction")
         if extra_rules:
             rules.update(extra_rules)
         params_sh = shd.as_named(mesh, shd.param_specs(
@@ -239,7 +224,11 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
             with MemTracker() as tracker, OpCounter() as counter:
                 out = step(*args)
             peak = tracker.get_tracker_snapshot("peak")
-        temp = sum(d["Total"] for d in peak.values())
+        # every tensor of the step is on ``meta``: torch 2.11's tracker
+        # also records the fake tensors of DTensor's sharding propagation
+        # (global shapes, on the mesh's device type), which later
+        # releases skip
+        temp = peak.get(torch.device("meta"), {}).get("Total", 0)
         stats = counter.stats()
         n_chips = mesh.size()
     compile_s = time.time() - t0
@@ -255,8 +244,6 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
         model_bytes_global=mb)
     return {
         "arch": arch, "shape": shape_name, "mesh": mesh_name,
-        "placed_mesh": "x".join(map(str, placed[0])),
-        "deviations": deviations,
         "status": "ok", "n_chips": n_chips,
         "compile_seconds": round(compile_s, 1),
         "param_count": params_n,

@@ -19,6 +19,14 @@ import torch.distributed as dist
 
 SHARD_AXIS = "shards"
 
+# DTensor's sharding-propagation caches (Python and native) compare meshes
+# by layout, names and thread alone, so an entry made under an earlier
+# process group hands back that group's mesh, with its rank's coordinate
+# and subgroups. A mesh equal to one made before but holding another
+# coordinate or other subgroups (a later group, as another rank) clears
+# them; the same rank's meshes keep them.
+_SUBGROUPS: Dict = {}
+
 
 def make_mesh(device_type: str, shape: Tuple[int, ...],
               axes: Tuple[str, ...]):
@@ -33,7 +41,14 @@ def make_mesh(device_type: str, shape: Tuple[int, ...],
         raise RuntimeError(
             f"a {'x'.join(map(str, shape))} mesh needs a process group of "
             f"{n} ranks; the default group has {world}")
-    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+    mesh = init_device_mesh(device_type, shape, mesh_dim_names=axes)
+    held = (tuple(mesh.get_coordinate()),
+            tuple(mesh.get_group(i).group_name for i in range(mesh.ndim)))
+    if _SUBGROUPS.setdefault(mesh, held) != held:
+        from torch.distributed.tensor.debug import _clear_sharding_prop_cache
+        _clear_sharding_prop_cache()
+        _SUBGROUPS[mesh] = held
+    return mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False,

@@ -34,7 +34,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from .layers import cdtype, mrope, param, pdtype, rope, softcap
-from .partitioning import local_apply, shard_hint
+from .partitioning import (local_apply, logical_to_spec, placed_axes,
+                           shard_hint, shard_offset)
 
 NEG_INF = -1e30
 WINDOWED = ("local_attn", "swa_attn")
@@ -106,18 +107,9 @@ def _chunk_step(cap: float, dot_dt: torch.dtype, q_blk, k_c, v_c, mask,
     return m_new, l_new, acc_new
 
 
-_BH = ("batch", "heads", None)
 _BSH = ("batch", None, "heads", None)
-
-
-def _local_chunk_step(cap, dot_dt, q_blk, k_c, v_c, mask, m_run, l_run,
-                      acc):
-    """``_chunk_step``, on a mesh on each (batch, head) shard alone."""
-    return local_apply(
-        functools.partial(_chunk_step, cap, dot_dt),
-        (q_blk, k_c, v_c, mask, m_run, l_run, acc),
-        (_BH + (None,), _BSH, _BSH, None, _BH, _BH, _BH + (None,)),
-        (_BH, _BH, _BH + (None,)))
+_Q = ("batch", "attn_q_seq", "heads", None)
+_KV = ("batch", None, "kv_heads", None)
 
 
 def chunked_attention(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
@@ -130,18 +122,47 @@ def chunked_attention(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
     masks trailing KV padding (whisper's padded encoder length). The
     score/context products take compute-dtype operands with float32
     accumulation; softmax statistics stay float32.
+
+    On a mesh the whole loop runs once on each rank's local shards
+    (``local_apply``): q placed ``("batch", "attn_q_seq", "heads")``,
+    k and v ``("batch", None, "kv_heads")``, whole over the sequence, and
+    the output as q is. Where ``attn_q_seq`` splits q's sequence (context
+    parallelism: heads the model axis does not divide), a rank's queries
+    start at its shard's offset, so the causal and window masks, the
+    banded skip and ``kv_valid`` see absolute positions; where the heads
+    are split and the KV heads are not, a rank takes the KV heads of its
+    query heads. The offsets come from the placements q and k received (a
+    dim the axis does not divide stays whole: offset 0).
     """
+    q = shard_hint(q, *_Q)
+    k, v = shard_hint(k, *_KV), shard_hint(v, *_KV)
+    q_axes = placed_axes(q, _Q)
+    rep = q.shape[2] // k.shape[2]
+    attend = functools.partial(
+        _attend, cfg.softcap_attn, causal, window, chunk,
+        q_offset + shard_offset(q, 1), kv_valid, rep,
+        shard_offset(q, 2) - shard_offset(k, 2) * rep)
+    return local_apply(attend, (q, k, v), (q_axes, _KV, _KV), (q_axes,))
+
+
+def _attend(cap: float, causal: bool, window: int, chunk: int,
+            q_offset: int, kv_valid: Optional[int], rep: int, head0: int,
+            q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+            ) -> torch.Tensor:
+    """``chunked_attention`` on (local) tensors: q's first row is at
+    absolute position ``q_offset``, and its heads are those from
+    ``head0`` of k's heads repeated ``rep`` times."""
     b, sq, h, d = q.shape
-    sk, kv = k.shape[1], k.shape[2]
+    sk = k.shape[1]
     chunk = min(chunk, sk)
     if sk % chunk:
         raise ValueError(f"key length {sk} is not a multiple of the "
                          f"attention chunk {chunk}")
-    rep = h // kv
     scale = 1.0 / (d ** 0.5)
     dev = q.device
     dot_dt = q.dtype
     remat = torch.is_grad_enabled()
+    step = functools.partial(_chunk_step, cap, dot_dt)
     # the rounded dot operand, multiplied in float32
     qf = (q.float() * scale).to(dot_dt).float().transpose(1, 2)
     outs = []
@@ -150,7 +171,6 @@ def chunked_attention(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
         q_pos = q_offset + torch.arange(q0, q1, device=dev)
         first, last = q_offset + q0, q_offset + q1 - 1
         q_blk = qf[:, :, q0:q1]
-        # (like q: on a mesh the running statistics are placed as q is)
         m_run = torch.full_like(q_blk[..., 0], NEG_INF)
         l_run = torch.zeros_like(q_blk[..., 0])
         acc = torch.zeros_like(q_blk)
@@ -167,8 +187,9 @@ def chunked_attention(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
             if rep > 1:
                 k_c = k_c.repeat_interleave(rep, dim=2)
                 v_c = v_c.repeat_interleave(rep, dim=2)
-            k_c = shard_hint(k_c, "batch", None, "heads", None)
-            v_c = shard_hint(v_c, "batch", None, "heads", None)
+            if k_c.shape[2] != h:       # heads split, KV heads whole
+                k_c = k_c[:, :, head0:head0 + h]
+                v_c = v_c[:, :, head0:head0 + h]
             k_pos = torch.arange(k0, k1, device=dev)
             mask = torch.ones((q1 - q0, chunk), dtype=torch.bool, device=dev)
             if causal:
@@ -177,11 +198,10 @@ def chunked_attention(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
                 mask &= (q_pos[:, None] - k_pos[None, :]) < window
             if kv_valid is not None:
                 mask &= (k_pos < kv_valid)[None, :]
-            args = (cfg.softcap_attn, dot_dt, q_blk, k_c, v_c, mask,
-                    m_run, l_run, acc)
+            args = (q_blk, k_c, v_c, mask, m_run, l_run, acc)
             m_run, l_run, acc = (
-                checkpoint(_local_chunk_step, *args, use_reentrant=False)
-                if remat else _local_chunk_step(*args))
+                checkpoint(step, *args, use_reentrant=False)
+                if remat else step(*args))
         outs.append(acc / torch.clamp_min(l_run, 1e-30)[..., None])
     out = torch.cat(outs, dim=2)
     return out.transpose(1, 2).to(q.dtype)                  # (B,Sq,H,D)
@@ -203,12 +223,25 @@ def apply_attention(cfg: ArchConfig, p: Attention, x: torch.Tensor, *,
     window = cfg.window if kind in WINDOWED else 0
     out = chunked_attention(cfg, q, k, v, causal=not bidirectional,
                             window=window, chunk=chunk, kv_valid=kv_valid)
-    dt = cdtype(cfg)
-    y = out.reshape(out.shape[0], out.shape[1], -1) @ p.wo.to(dt)
+    # on a mesh the heads are merged and projected on each shard (DTensor
+    # in torch 2.11 cannot flatten a split sequence, nor split the flat
+    # dim's gradient where the heads do not divide it): the rows of a
+    # split sequence by the whole ``wo``, as the reference's partitioned
+    # product, or split heads by their rows of ``wo``, a partial sum over
+    # the model axis
+    axes = placed_axes(out, _Q)
+    heads = logical_to_spec(axes[2:3])[0] if axes[2] else None
+    y = local_apply(_merge_heads, (out, p.wo.to(cdtype(cfg))),
+                    (axes, (axes[2], None)), (axes[:2] + (None,),),
+                    [{heads: "sum"} if heads else {}])
     y = shard_hint(y, "batch", None, None)
     if return_kv:
         return y, (k, v)
     return y
+
+
+def _merge_heads(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    return out.reshape(out.shape[0], out.shape[1], -1) @ wo
 
 
 # ---------------------------------------------------------------- decode

@@ -82,6 +82,30 @@ def shard_hint(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
     return x.redistribute(mesh, want)
 
 
+def placed_axes(x: torch.Tensor, axes: Tuple[Optional[str], ...]
+                ) -> Tuple[Optional[str], ...]:
+    """``axes`` with None for each dim of ``x`` that no mesh axis splits:
+    the logical axes of the placement ``shard_hint`` gave ``x`` (all None
+    for a plain tensor)."""
+    from torch.distributed.tensor import DTensor
+    split = ({p.dim for p in x.placements if p.is_shard()}
+             if isinstance(x, DTensor) else set())
+    return tuple(a if d in split else None for d, a in enumerate(axes))
+
+
+def shard_offset(x: torch.Tensor, dim: int) -> int:
+    """The global index of this rank's first element of ``x`` along
+    ``dim`` (0 for a plain tensor or a dim no mesh axis splits)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return 0
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    _, offset = compute_local_shape_and_global_offset(
+        x.shape, x.device_mesh, x.placements)
+    return int(offset[dim])
+
+
 def local_apply(fn, args, in_axes, out_axes, partial=None):
     """``fn(*args)``; on DTensors (a step on a mesh with rules installed)
     ``fn`` runs on the local shards, as ``local_map`` does: each argument

@@ -39,7 +39,8 @@ from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .layers import (apply_ffn, apply_norm, cdtype, init_ffn, init_norm,
                      param, pdtype, sinusoidal_positions, softcap)
-from .partitioning import current_rules, local_apply, shard_hint
+from .partitioning import (current_rules, local_apply, shard_hint,
+                           shard_offset)
 
 MOE_AUX_KEYS = ("load_balance_loss", "expert_imbalance", "dropped_fraction")
 ATTN_KINDS = ("attn", "local_attn", "swa_attn")
@@ -366,7 +367,7 @@ def _vocab_pick(src: torch.Tensor, idx: torch.Tensor, vdim: int,
     if rules is None or not isinstance(src, DTensor):
         return pick(src, idx)
     src = shard_hint(src, *src_axes)
-    offset = _local_offset(src)[vdim]
+    offset = shard_offset(src, vdim)
 
     def local(t, ids):
         n = t.shape[vdim]
@@ -425,19 +426,28 @@ def _target_logit(lg: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
                        lambda x, ids: x.gather(-1, ids[..., None])[..., 0])
 
 
-def _local_offset(t) -> tuple:
-    """Where this rank's shard of the DTensor ``t`` starts, per dim."""
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
-    return compute_local_shape_and_global_offset(t.shape, t.device_mesh,
-                                                 t.placements)[1]
+def _logsumexp(lg: torch.Tensor) -> torch.Tensor:
+    """``logsumexp`` over the vocab dim of (B, c, V) logits. On a mesh,
+    vocab-parallel: the max over the shards (an all-reduce of (B, c)),
+    each shard's sum of exponentials on its own (``local_apply``), and
+    their sum (an all-reduce of (B, c)); DTensor would take ``logsumexp``
+    over the split vocab by moving the logits between the ranks."""
+    from torch.distributed.tensor import DTensor
+    rules = current_rules()
+    if rules is None or not isinstance(lg, DTensor):
+        return torch.logsumexp(lg, dim=-1)
+    m = lg.detach().amax(-1)
+    s = local_apply(lambda x, mx: (x - mx[..., None]).exp().sum(-1),
+                    (lg, m), (("batch", None, "vocab"), ("batch", None)),
+                    (("batch", None),), [{rules["vocab"]: "sum"}])
+    return s.log() + m
 
 
 def _xent_chunk(cap: float, h_c, w, t_c, m_c):
     """Summed masked negative log-likelihood of one sequence chunk."""
     lg = softcap((h_c @ w).float(), cap)
     lg = shard_hint(lg, "batch", None, "vocab")
-    lse = torch.logsumexp(lg, dim=-1)
+    lse = _logsumexp(lg)
     tgt = _target_logit(lg, t_c)
     return ((lse - tgt) * m_c).sum()
 
@@ -453,7 +463,11 @@ def chunked_xent(cfg: ArchConfig, params: Params, h: torch.Tensor,
     if s % chunk:
         raise ValueError(f"sequence length {s} is not a multiple of the "
                          f"loss chunk {chunk}")
-    w = _unembed_matrix(cfg, params).to(cdtype(cfg))
+    # on a mesh the weight's data-axis shards are gathered (FSDP), as
+    # GSPMD partitions the reference's product under the logits' hint:
+    # else DTensor contracts over the data axis and gathers the batch
+    w = shard_hint(_unembed_matrix(cfg, params).to(cdtype(cfg)), None,
+                   "vocab")
     remat = torch.is_grad_enabled()
     tot = torch.zeros((), device=h.device)
     for c0 in range(0, s, chunk):

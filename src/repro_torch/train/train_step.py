@@ -76,7 +76,11 @@ def make_train_step(model: Model, optimizer: AdamW, *,
     sharding, so that the data-parallel reduction is a reduce-scatter onto
     each shard, not an all-reduce (the reference's §Perf H-AR1):
       * DTensor parameters (the dry run): a gradient in other placements
-        is redistributed to them;
+        is redistributed to them: from partial sums over the batch's
+        mesh axes, a reduce-scatter over "data" onto the shard and, on a
+        multi-pod mesh, where the parameters are replicated over "pod",
+        an all-reduce of that shard over "pod" (DTensor reduces within
+        the pods first; ``OpCounter`` counts both);
       * whole parameters on every rank (``launch.train --data-parallel``):
         the optimizer must be built over ``shard_params(model,
         grad_shardings)`` (its i-th parameter the shard of the model's

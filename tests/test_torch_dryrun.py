@@ -10,6 +10,7 @@ as ``FAILED`` with its traceback, and no process group outlives a cell.
 The full-size cells run on the card's host (``chip_smoke.py``); the
 2 x 2 x 2 cells are in ``test_torch_dryrun_pods.py``.
 """
+import dataclasses
 import json
 
 import pytest
@@ -86,3 +87,22 @@ def test_cli_writes_a_skipped_cell(tmp_path, capsys):
         "llama3.2-3b__long_500k__16x16.json",
         "llama3.2-3b__long_500k__2x16x16.json"]
     assert "skipped" in capsys.readouterr().out
+
+
+def test_context_parallel_cell_counts_less_attention(tmp_path):
+    """llama3.2-3b at 3 heads, which the model axis of 2 does not divide:
+    ``attn_q_seq`` splits the queries' sequence, and the counted rank (the
+    last of the model axis) computes its half of the rows against the
+    keys, fewer FLOPs than the same cell with the rule off."""
+    cfg = dataclasses.replace(get_config("llama3.2-3b", reduced=True),
+                              n_heads=3, n_kv_heads=1)
+    outs = [dryrun.run_cell("llama3.2-3b", "train_4k", False,
+                            report_dir=tmp_path, cfg=cfg,
+                            shape=REDUCED_SHAPES["train_4k"],
+                            mesh_override=MESHES["2x2"], attn_chunk=32,
+                            extra_rules=extra)
+            for extra in (None, {"attn_q_seq": None})]
+    assert [o["status"] for o in outs] == ["ok", "ok"], outs
+    cp, whole = outs
+    assert cp["hlo_flops_per_chip"] < whole["hlo_flops_per_chip"]
+    assert cp["hlo_bytes_per_chip"] < whole["hlo_bytes_per_chip"]
