@@ -88,9 +88,13 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      tenant's served operand, from the shared store;
   2d. charloop phase, ``{"charloop": ...}`` and ``{"calibration": ...}``
      lines: the tree step (``build_slice`` and ``characterize_slice(k=5)``
-     for spmv, spgemm and spadd on quickstart's corpus under
-     ``H100_SXM``: CV MAPE and R², the top 3 importances, the groups,
-     ``compare_platforms``); then, under a ``Tracer``, every engine tenant
+     for spmv, spgemm and spadd on quickstart's corpus under each of
+     ``PLATFORMS``, ``A100_SXM``, ``H100_SXM`` and ``L40S``: nine slices,
+     each with its CV MAPE and R², top 3 importances and groups; then
+     ``compare_platforms`` over the three, algorithm-intrinsic against
+     architecture-induced, and the fig17 check: SpADD's median modeled
+     GFLOPS H100 >= A100 >= L40S, the records' bandwidth order); then,
+     under a ``Tracer``, every engine tenant
      planned at the tree's pick of the selector phase's SpMV and SpMM
      tuners (through ``SelectorService(confidence_threshold=0)``; SpMV
      from the engine's shared store, SpMM one tenant at a time), each
@@ -98,7 +102,15 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      trace written to ``build/charloop_smoke/trace.jsonl`` and read back
      by ``repro_torch.obs.report.main``: one calibration line per
      ``op/layout/backend`` group, each group that launched present with
-     positive launches and measured and modeled times;
+     positive launches and measured and modeled times, and the groups
+     holding the H100 card step's launches alone; then, outside the
+     trace, the pick step: per record a ``ScheduleTuner("spmv", record)``
+     fit on the serve CLI's corpus, every tenant planned at its pick on
+     this card through the engine's store (a pick another record made
+     before is a store hit), executed 10 times and checked against the
+     float64 oracle,
+     one line per record with each tenant's pick, its modeled ms under
+     that record and its measured ms on this card;
   2e. mutate phase, ``{"mutate": ...}`` lines: ``MutableMatrix(slack=4)``
      over a copy of ``gen_spatial(524288)`` at bs=32 ELL, then SELL, with
      a ``PreparedStore``: 24 value steps of 1% of the nonzeros (set and add
@@ -363,7 +375,8 @@ ENGINE_CRASH = {"qps": 50.0, "n_requests": 128, "rate": 0.05, "seed": 8,
                 "backoff_base_s": 1e-5}
 ENGINE_DIR = Path(__file__).resolve().parent / "build" / "engine_smoke"
 # the charloop phase's tree step: quickstart's corpus (45 matrices, 384-1024
-# rows, and the 18 synthetic ones) under H100_SXM, 5-fold CV
+# rows, and the 18 synthetic ones) under each of the port's three records,
+# 5-fold CV
 CHARLOOP_CORPUS = {"n_matrices": 45, "n_min": 384, "n_max": 1024, "seed": 0}
 CHARLOOP_EXECUTES = 10
 CHARLOOP_DIR = Path(__file__).resolve().parent / "build" / "charloop_smoke"
@@ -1370,90 +1383,80 @@ def run_charloop(device: str, tuners: dict, population, store,
                  corpus_kw: dict) -> dict:
     """The charloop phase. Tree step: ``build_slice`` and
     ``characterize_slice(k=5)`` (quickstart's tree settings) for spmv,
-    spgemm and spadd over ``corpus(**corpus_kw)`` under ``H100_SXM``, each
-    slice's CV scores, top importances and groups, then
-    ``compare_platforms``. Card step, under a ``Tracer``: each tenant of
+    spgemm and spadd over ``corpus(**corpus_kw)`` under each record of
+    ``PLATFORMS`` (A100, H100, L40S), each slice's CV scores, top
+    importances and groups, then ``compare_platforms`` and the fig17
+    check (SpADD's median modeled GFLOPS never lower under a record with
+    more bandwidth). Card step, under a ``Tracer``: each tenant of
     ``population`` planned at the tree's pick of each fitted tuner in
     ``tuners`` (SpMV at k = 1 through the engine phase's ``store``, which
     holds those picks; SpMM at k = 8 without a store, one tenant at a
     time), each plan executed ``CHARLOOP_EXECUTES`` times against the
     float64 oracle. Report step: the trace written as JSONL, read back by
     ``repro_torch.obs.report.main``, one ``{"calibration": ...}`` line per
-    group. Returns the card step's launches."""
-    from repro_torch.core import (H100_SXM, build_slice, characterize_slice,
+    group. Pick step, after the trace: per record a SpMV tuner fit on the
+    serve CLI's corpus, each tenant planned at its pick on the card
+    through ``store`` (records that pick one schedule share its operand,
+    never a cached pick: each has its own ``ScheduleCache``) and checked
+    against the oracle. Returns the card and pick steps' launches."""
+    from repro_torch.core import (H100_SXM, PLATFORMS, ScheduleTuner,
+                                  build_slice, characterize_slice,
                                   compare_platforms, corpus,
-                                  grouped_importance, spmm_oracle,
-                                  spmv_oracle)
+                                  grouped_importance)
     from repro_torch.examples.quickstart import TREE_KW
     from repro_torch.kernels.bsr_spmv import kernel as K
     from repro_torch.obs import Tracer, install_tracer
     from repro_torch.obs import report
-    from repro_torch.selector import ScheduleCache, SelectorService
-    from repro_torch.sparse import plan
 
     t0 = time.monotonic()
     mats = corpus(**corpus_kw)
-    results = []
+    results, spadd_gflops = [], {}
     for kern in ("spmv", "spgemm", "spadd"):
-        t1 = time.monotonic()
-        data = build_slice(kern, mats, H100_SXM)
-        build_s = time.monotonic() - t1
-        t1 = time.monotonic()
-        res = characterize_slice(data, "gflops", k=5, **TREE_KW)
-        fit_s = time.monotonic() - t1
-        results.append(res)
-        emit({"charloop": {
-            "kernel": kern, "platform": res.platform, "matrices": len(mats),
-            "features": len(res.feature_names), "cv_mape": res.cv["mape"],
-            "cv_r2": res.cv["r2"], "top3": res.importances[:3],
-            "groups": grouped_importance(res), "build_slice_s": build_s,
-            "characterize_s": fit_s}})
-        check(np.isfinite(res.cv["mape"]) and np.isfinite(res.cv["r2"])
-              and abs(sum(v for _, v in res.importances) - 1.0) < 1e-6,
-              f"charloop {kern}: finite CV scores, importances sum to 1")
+        for rec in PLATFORMS.values():
+            t1 = time.monotonic()
+            data = build_slice(kern, mats, rec)
+            build_s = time.monotonic() - t1
+            t1 = time.monotonic()
+            res = characterize_slice(data, "gflops", k=5, **TREE_KW)
+            fit_s = time.monotonic() - t1
+            results.append(res)
+            if kern == "spadd":
+                spadd_gflops[rec.name] = float(np.median(data.y["gflops"]))
+            emit({"charloop": {
+                "kernel": kern, "platform": res.platform,
+                "matrices": len(mats), "features": len(res.feature_names),
+                "cv_mape": res.cv["mape"], "cv_r2": res.cv["r2"],
+                "top3": res.importances[:3],
+                "groups": grouped_importance(res), "build_slice_s": build_s,
+                "characterize_s": fit_s}})
+            check(np.isfinite(res.cv["mape"]) and np.isfinite(res.cv["r2"])
+                  and abs(sum(v for _, v in res.importances) - 1.0) < 1e-6,
+                  f"charloop {kern} {rec.name}: finite CV scores, "
+                  "importances sum to 1")
     emit({"charloop": {"compare_platforms": compare_platforms(results,
                                                               top=5),
                        "tree_step_s": time.monotonic() - t0}})
+    by_bw = sorted(PLATFORMS.values(), key=lambda p: -p.hbm_bw)
+    ordered = all(spadd_gflops[a.name] >= spadd_gflops[b.name]
+                  for a, b in zip(by_bw, by_bw[1:]))
+    emit({"charloop": {"fig17_spadd_median_gflops": spadd_gflops,
+                       "bandwidth_order": [p.name for p in by_bw],
+                       "higher_bw_wins": ordered}})
+    check(ordered, "charloop fig17: SpADD's median modeled GFLOPS never "
+          f"lower under more bandwidth ({spadd_gflops})")
 
     rng = np.random.default_rng(7)
     K.reset_launch_counts()
     tracer = install_tracer(Tracer())
-    groups, worst = set(), 0.0
     t0 = time.monotonic()
     try:
-        for k, tuner in sorted(tuners.items()):
-            op = "spmv" if k == 1 else "spmm"
-            svc = SelectorService(tuner, cache=ScheduleCache(),
-                                  confidence_threshold=0.0, device=device)
-            for name, A in population:
-                x = rng.standard_normal(
-                    A.shape[1] if k == 1 else (A.shape[1], k)).astype(
-                        np.float32)
-                misses = store.misses
-                p = plan(op, (A,), selector=svc, device=device,
-                         store=store if k == 1 else None)
-                served = served_matrix(A, p.schedule)
-                ref = (spmv_oracle if k == 1 else spmm_oracle)(served, x)
-                for _ in range(CHARLOOP_EXECUTES):
-                    y = p.execute(x)
-                y = y.cpu().numpy()
-                e = rel_err(y, ref)
-                worst = max(worst, e)
-                check(y.shape == ref.shape and np.isfinite(y).all()
-                      and e <= TOL, f"charloop {op} {name}: rel_err {e:.3e}")
-                groups.add((op, p.schedule.layout if p.schedule.backend
-                            != "dense" else "dense", p.backend))
-                emit({"charloop": {
-                    "op": op, "tenant": name,
-                    "schedule": describe(p.schedule), "source": p.source,
-                    "modeled_ms": p.modeled_time_s * 1e3,
-                    "ms": p.last_measured_s * 1e3, "rel_err": e,
-                    "store_miss": (store.misses - misses) if k == 1
-                    else None}})
-                del p
+        rows = plan_tenants(device, tuners, population, store, rng)
     finally:
         install_tracer(None)
     card_s = time.monotonic() - t0
+    groups = {(r["op"], r["layout"], r["backend"]) for r in rows}
+    for row in rows:
+        emit({"charloop": row})
     launches = {n: v for n, v in K.LAUNCHES.items() if v}
     shutil.rmtree(CHARLOOP_DIR, ignore_errors=True)
     CHARLOOP_DIR.mkdir(parents=True)
@@ -1464,7 +1467,8 @@ def run_charloop(device: str, tuners: dict, population, store,
     for key, row in rep.items():
         emit({"calibration": {key: row}})
     emit({"charloop": {"card_step_s": card_s, "trace_events": n_events,
-                       "max_rel_err": worst, "launches": launches,
+                       "max_rel_err": max(r["rel_err"] for r in rows),
+                       "launches": launches,
                        "groups": len(rep)}})
     for op, layout, backend in sorted(groups):
         row = rep.get(f"{op}/{layout}/{backend}")
@@ -1472,10 +1476,82 @@ def run_charloop(device: str, tuners: dict, population, store,
               and row["measured_gm_ms"] > 0 and row["modeled_gm_ms"] > 0,
               f"charloop: calibration group {op}/{layout}/{backend} "
               f"reported ({row})")
+    # the report holds the H100 card step's launches and no other record's
+    traced = sum(row["launches"] for row in rep.values())
+    check(traced == len(tuners) * len(population) * CHARLOOP_EXECUTES,
+          f"charloop: the calibration groups hold the {H100_SXM.name} "
+          f"plans alone ({traced} launches)")
     for name in {f"bsr_{op}_{layout}" for op, layout, _ in groups
                  if layout != "dense"}:
         check(launches.get(name, 0) > 0, f"charloop: {name} launched")
+
+    # pick step: each record's tuner picks, each pick run on this card
+    K.reset_launch_counts()
+    t0 = time.monotonic()
+    layouts = set()
+    for rec in PLATFORMS.values():
+        t1 = time.monotonic()
+        tuner = ScheduleTuner("spmv", rec).fit(
+            corpus(**SELECTOR_CORPUS), max_mats=SELECTOR_CORPUS["n_matrices"])
+        fit_s = time.monotonic() - t1
+        rows = plan_tenants(device, {1: tuner}, population, store, rng)
+        layouts |= {r["layout"] for r in rows}
+        emit({"charloop": {"picks": rec.name, "card": CARD, "fit_s": fit_s,
+                           "corpus": SELECTOR_CORPUS, "tenants": rows}})
+    picked = {n: v for n, v in K.LAUNCHES.items() if v}
+    emit({"charloop": {"pick_step_s": time.monotonic() - t0,
+                       "launches": picked}})
+    for name in {f"bsr_spmv_{lay}" for lay in layouts if lay != "dense"}:
+        check(picked.get(name, 0) > 0, f"charloop picks: {name} launched")
+    for name, n in picked.items():
+        launches[name] = launches.get(name, 0) + n
     return launches
+
+
+def plan_tenants(device: str, tuners: dict, population, store,
+                 rng) -> list:
+    """Each tenant of ``population`` planned at the tree's pick of each
+    tuner in ``tuners`` (k -> tuner; SpMV at k = 1 through ``store``, SpMM
+    at k = 8 without one), executed ``CHARLOOP_EXECUTES`` times and held
+    against the float64 oracle of the matrix its schedule serves. Returns
+    each plan's record."""
+    from repro_torch.core import spmm_oracle, spmv_oracle
+    from repro_torch.selector import ScheduleCache, SelectorService
+    from repro_torch.sparse import plan
+
+    rows = []
+    for k, tuner in sorted(tuners.items()):
+        op = "spmv" if k == 1 else "spmm"
+        rec_name = tuner.platform.name
+        svc = SelectorService(tuner, cache=ScheduleCache(),
+                              confidence_threshold=0.0, device=device)
+        use = store if k == 1 else None
+        for name, A in population:
+            x = rng.standard_normal(
+                A.shape[1] if k == 1 else (A.shape[1], k)).astype(np.float32)
+            misses = use.misses if use is not None else 0
+            p = plan(op, (A,), selector=svc, device=device, store=use)
+            served = served_matrix(A, p.schedule)
+            ref = (spmv_oracle if k == 1 else spmm_oracle)(served, x)
+            for _ in range(CHARLOOP_EXECUTES):
+                y = p.execute(x)
+            y = y.cpu().numpy()
+            e = rel_err(y, ref)
+            check(y.shape == ref.shape and np.isfinite(y).all()
+                  and e <= TOL, f"charloop {op} {rec_name} {name}: "
+                  f"rel_err {e:.3e}")
+            rows.append({"op": op, "tenant": name,
+                         "layout": p.schedule.layout
+                         if p.schedule.backend != "dense" else "dense",
+                         "backend": p.backend,
+                         "schedule": describe(p.schedule),
+                         "source": p.source,
+                         "modeled_ms": p.modeled_time_s * 1e3,
+                         "ms": p.last_measured_s * 1e3, "rel_err": e,
+                         "store_miss": (use.misses - misses)
+                         if use is not None else None})
+            del p
+    return rows
 
 
 # -------------------------------------------------------------- mutate

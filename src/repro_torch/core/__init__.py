@@ -15,7 +15,8 @@ nothing from ``repro``).
   compare_platforms / ...             trees, CV, importances (charloop.py)
   Schedule / ScheduleTuner            loop-driven autotuning (autotune.py)
   select_moe_block_size               MoE tile rule (autotune.py)
-  Platform / H100_SXM / PLATFORMS     platform model (platforms.py)
+  Platform / PLATFORMS                platform model: A100_SXM, H100_SXM,
+  ROOFLINE_PLATFORM                   L40S; the roofline's card (platforms.py)
 """
 from .autotune import (BLOCK_SIZES, SELL_SIGMA, Schedule, ScheduleTuner,
                        candidate_schedules, select_moe_block_size)
@@ -36,24 +37,24 @@ from .metrics import (FEATURE_NAMES, THREAD_SWEEP, branch_entropy,
 from .perfmodel import (execution_time, run_spadd_model, run_spgemm_model,
                         run_spmv_model, run_spmv_sell_model, stall_breakdown,
                         targets)
-from .platforms import H100_SXM, PLATFORMS, Platform
+from .platforms import (A100_SXM, H100_SXM, L40S, PLATFORMS,
+                        ROOFLINE_PLATFORM, Platform)
 from .synthetic import GENERATORS, TABLE2, gen_spatial, gen_zipf
 
 __all__ = [
-    "BLOCK_SIZES", "BSR", "COUNTER_FEATURES", "CSR", "CharacterizationResult",
-    "DOMAINS", "DecisionTreeRegressor", "SliceData", "TARGETS",
-    "build_slice", "characterize_all", "characterize_slice",
-    "compare_platforms", "grouped_importance", "top_feature",
-    "ELLBSR", "FEATURE_NAMES", "GENERATORS", "H100_SXM", "PLATFORMS",
-    "Platform", "SELLBSR", "SELL_SIGMA", "Schedule", "ScheduleTuner",
-    "TABLE2", "THREAD_SWEEP", "branch_entropy", "candidate_schedules",
-    "characterize", "corpus", "ell_block_cap", "execution_time",
-    "gen_spatial", "gen_zipf", "index_affinity", "kfold_cv", "mape",
-    "partition_imbalance", "r2_score", "reuse_affinity", "run_spadd_model",
-    "run_spgemm_model", "run_spmv_model", "run_spmv_sell_model",
-    "select_moe_block_size", "sell_layout", "sell_padding_fraction",
-    "sell_slice_widths", "sell_spmv_counters", "shard_counters",
-    "slice_imbalance", "spadd_counters", "spgemm_counters", "spmm_oracle",
-    "spmv_counters", "spmv_oracle", "stall_breakdown", "targets",
-    "thread_imbalance",
+    "A100_SXM", "BLOCK_SIZES", "BSR", "COUNTER_FEATURES", "CSR",
+    "CharacterizationResult", "DOMAINS", "DecisionTreeRegressor", "ELLBSR",
+    "FEATURE_NAMES", "GENERATORS", "H100_SXM", "L40S", "PLATFORMS", "Platform",
+    "ROOFLINE_PLATFORM", "SELLBSR", "SELL_SIGMA", "Schedule", "ScheduleTuner",
+    "SliceData", "TABLE2", "TARGETS", "THREAD_SWEEP", "branch_entropy",
+    "build_slice", "candidate_schedules", "characterize", "characterize_all",
+    "characterize_slice", "compare_platforms", "corpus", "ell_block_cap",
+    "execution_time", "gen_spatial", "gen_zipf", "grouped_importance",
+    "index_affinity", "kfold_cv", "mape", "partition_imbalance", "r2_score",
+    "reuse_affinity", "run_spadd_model", "run_spgemm_model", "run_spmv_model",
+    "run_spmv_sell_model", "select_moe_block_size", "sell_layout",
+    "sell_padding_fraction", "sell_slice_widths", "sell_spmv_counters",
+    "shard_counters", "slice_imbalance", "spadd_counters", "spgemm_counters",
+    "spmm_oracle", "spmv_counters", "spmv_oracle", "stall_breakdown",
+    "targets", "thread_imbalance", "top_feature",
 ]

@@ -20,12 +20,11 @@ Pipeline:
      selector=tuner)``, which preps the chosen container on the card and
      returns the launch.
 
-``platforms=None`` means the port's ``PLATFORMS``, which holds
-``H100_SXM`` alone. With one platform, ``compare_platforms`` finds every
-top feature in every platform's top-N, so all of them land under
-``algorithm_intrinsic`` and ``architecture_induced`` stays empty: the
-split needs two or more ``Platform`` records (the tests carry the JAX
-package's TPU records across as ``Platform(**asdict(...))``).
+``platforms=None`` means the port's ``PLATFORMS``: ``A100_SXM``,
+``H100_SXM`` and ``L40S``, three generations that differ in memory
+technology, L2 size and memory-level parallelism, as the reference's three
+TPU records do. ``compare_platforms`` splits each kernel's top features
+over them.
 """
 from __future__ import annotations
 
@@ -149,10 +148,8 @@ def compare_platforms(results: Sequence[CharacterizationResult], top: int = 5,
     """Per kernel: features in every platform's top-N (algorithm-intrinsic)
     vs features specific to some platforms (architecture-induced).
 
-    Over the port's ``PLATFORMS`` (``H100_SXM`` alone) each kernel has one
-    slice, so every top feature is algorithm-intrinsic and none is
-    architecture-induced; the split says something only across two or
-    more platform records."""
+    The split needs a slice per platform for each kernel: over one record
+    every top feature would be algorithm-intrinsic."""
     by_kernel: Dict[str, Dict[str, List[str]]] = {}
     kernels = sorted({r.kernel for r in results})
     for kern in kernels:

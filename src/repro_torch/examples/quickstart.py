@@ -3,12 +3,13 @@
   1. build a corpus of sparse matrices (9 domains + 9 synthetic categories)
   2. compute the paper's static metrics (Eq. 1-6)
   3. simulate the kernel schedules and model GFLOPS on the port's
-     platforms (``H100_SXM``)
+     platforms (``A100_SXM``, ``H100_SXM``, ``L40S``)
   4. train decision trees, cross-validate (Fig. 5), extract importances
-     (Fig. 9/12/15), and compare across platforms (§3.5; with one
-     platform every top feature is algorithm-intrinsic)
-  5. use the trained tuner to pick a kernel schedule for a new matrix and
-     run it on ``--device`` (the card by default)
+     (Fig. 9/12/15), and compare across platforms (§3.5: features in every
+     platform's top 5 are algorithm-intrinsic, the rest
+     architecture-induced)
+  5. use a tuner trained for ``H100_SXM`` to pick a kernel schedule for a
+     new matrix and run it on ``--device`` (the card by default)
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.quickstart [--device cpu]
 """
@@ -55,7 +56,8 @@ def main(argv=None) -> None:
               + ", ".join(f"{k}:{v:.2f}" for k, v in g.items()))
     cmp = compare_platforms(results, top=5)
     for kern, d in cmp.items():
-        print(f"  {kern}: intrinsic={d['algorithm_intrinsic']}")
+        print(f"  {kern}: intrinsic={d['algorithm_intrinsic']} "
+              f"induced={d['architecture_induced']}")
 
     print("\n== 5. loop-driven schedule selection (plan/execute facade) ==")
     tuner = ScheduleTuner("spmv", H100_SXM).fit(mats, max_mats=24)

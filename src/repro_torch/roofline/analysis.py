@@ -12,16 +12,17 @@ is no second source to reconcile and the report has no
 ``cost_analysis_*`` fields. The fields keep the reference's names
 (``hlo_flops``, ``hlo_bytes``) so that a reader of either report finds the
 same numbers under the same keys; here they hold the counted operators'
-totals. The platform is the port's ``H100_SXM`` (989 TFLOP/s dense bf16,
-3.35 TB/s HBM3, NVLink 4 at 18 links x 50 GB/s, taken for every mesh axis
-as the reference takes one ICI figure).
+totals. The platform is the port's ``ROOFLINE_PLATFORM``, the card it runs
+on: ``H100_SXM`` (989 TFLOP/s dense bf16, 3.35 TB/s HBM3, NVLink 4 at 18
+links x 50 GB/s, taken for every mesh axis as the reference takes one ICI
+figure).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
-from ..core.platforms import H100_SXM, Platform
+from ..core.platforms import ROOFLINE_PLATFORM, Platform
 from .op_analysis import OpStats, measure_step
 
 __all__ = ["RooflineReport", "roofline_terms", "measure_step"]
@@ -61,7 +62,8 @@ def roofline_terms(*, arch: str, shape: str, mesh_name: str, n_chips: int,
                    stats: OpStats, memory_per_device: float,
                    model_flops_global: float,
                    model_bytes_global: float = 0.0,
-                   platform: Platform = H100_SXM) -> RooflineReport:
+                   platform: Platform = ROOFLINE_PLATFORM
+                   ) -> RooflineReport:
     flops = stats.flops
     hbm = stats.hbm_bytes
     peak = platform.peak_flops_bf16

@@ -6,12 +6,15 @@ Parity: the corpus gives the same CSRs; ``build_slice`` the same features,
 ``X`` and targets (rtol 1e-12); ``characterize_slice`` the same CV scores
 (rtol 1e-9) and the same importances in the same order; ``compare_platforms``
 and ``grouped_importance`` the same answers over the JAX package's TPU
-records, carried across as ``Platform(**asdict(...))`` (the tests import
-both packages, the port does not). Then the twins of
-``tests/test_charloop.py`` on ``H100_SXM`` (the cross-platform ones on the
-converted TPU records), the twin of ``test_system::
-test_charloop_reproduces_paper_findings``, the report on traces written by
-either package, and the examples on the CPU.
+records carried across as ``Platform(**asdict(...))``, and over the port's
+three NVIDIA records carried the other way (the tests import both
+packages, the port does not): ``characterize_all`` over the port's
+``PLATFORMS`` equals the reference's over the same three records. Then the
+twins of ``tests/test_charloop.py`` on ``H100_SXM`` (the cross-platform
+ones on the converted TPU records and on the port's three), the twin of
+``test_system::test_charloop_reproduces_paper_findings``, the
+architecture-induced split on that corpus, the report on traces written
+by either package, and the examples on the CPU.
 """
 import dataclasses
 import json
@@ -30,8 +33,9 @@ from repro.obs import report as jreport
 from repro.sparse import plan as jplan
 from repro.sparse import resilience as jres
 from repro_torch import core as T
-from repro_torch.core import (H100_SXM, PLATFORMS, Schedule, ScheduleTuner,
-                              build_slice, characterize_all,
+from repro_torch.core import (A100_SXM, H100_SXM, L40S, PLATFORMS,
+                              Schedule, ScheduleTuner, build_slice,
+                              characterize_all,
                               characterize_slice, compare_platforms, corpus,
                               grouped_importance, run_spadd_model,
                               run_spgemm_model, run_spmv_model,
@@ -48,7 +52,12 @@ KERNELS = ("spmv", "spgemm", "spadd")
 V4 = T.Platform(**dataclasses.asdict(J.TPU_V4))
 V5E = T.Platform(**dataclasses.asdict(J.TPU_V5E))
 V5P = T.Platform(**dataclasses.asdict(J.TPU_V5P))
+# the port's NVIDIA records, carried across to the reference as data
 JH100 = J.Platform(**dataclasses.asdict(H100_SXM))
+JA100 = J.Platform(**dataclasses.asdict(A100_SXM))
+JL40S = J.Platform(**dataclasses.asdict(L40S))
+JPLATFORMS = {n: J.Platform(**dataclasses.asdict(p))
+              for n, p in PLATFORMS.items()}
 SMALL = dict(n_matrices=18, n_min=256, n_max=512, seed=7)
 MATS = corpus(**SMALL)
 JMATS = J.corpus(**SMALL)
@@ -65,7 +74,8 @@ def _fresh_resilience():
 
 def _pair(name):
     """(port platform, JAX platform) of one record."""
-    return {"h100": (H100_SXM, JH100), "v4": (V4, J.TPU_V4),
+    return {"h100": (H100_SXM, JH100), "a100": (A100_SXM, JA100),
+            "l40s": (L40S, JL40S), "v4": (V4, J.TPU_V4),
             "v5e": (V5E, J.TPU_V5E)}[name]
 
 
@@ -81,7 +91,7 @@ def test_corpus_like_jax():
             np.testing.assert_array_equal(a, b, err_msg=f"{n} {f}")
 
 
-@pytest.mark.parametrize("platform", ["h100", "v5e"])
+@pytest.mark.parametrize("platform", ["h100", "v5e", "a100", "l40s"])
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_build_slice_like_jax(kernel, platform):
     p, jp = _pair(platform)
@@ -96,13 +106,10 @@ def test_build_slice_like_jax(kernel, platform):
         np.testing.assert_allclose(got.y[t], want.y[t], rtol=1e-12, atol=0)
 
 
-@pytest.mark.parametrize("target", ["gflops", "bandwidth_gbps"])
-@pytest.mark.parametrize("kernel", KERNELS)
-def test_characterize_slice_like_jax(kernel, target):
-    got = characterize_slice(build_slice(kernel, MATS, H100_SXM), target,
-                             k=5)
-    want = J.characterize_slice(J.build_slice(kernel, JMATS, JH100), target,
-                                k=5)
+def _assert_result_like_jax(got, want):
+    """One slice's CV scores (rtol 1e-9) and importances, in order."""
+    assert (got.kernel, got.platform, got.target) == \
+        (want.kernel, want.platform, want.target)
     assert set(got.cv) == set(want.cv)
     for k in got.cv:
         assert got.cv[k] == pytest.approx(want.cv[k], rel=1e-9, abs=1e-12)
@@ -112,6 +119,26 @@ def test_characterize_slice_like_jax(kernel, target):
                                [v for _, v in want.importances],
                                rtol=1e-9, atol=1e-12)
     assert top_feature(got) == jcharloop.top_feature(want)
+
+
+@pytest.mark.parametrize("target", ["gflops", "bandwidth_gbps"])
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_characterize_slice_like_jax(kernel, target):
+    _assert_result_like_jax(
+        characterize_slice(build_slice(kernel, MATS, H100_SXM), target, k=5),
+        J.characterize_slice(J.build_slice(kernel, JMATS, JH100), target,
+                             k=5))
+
+
+@pytest.mark.parametrize("platform", ["a100", "l40s"])
+@pytest.mark.parametrize("target", ["gflops", "bandwidth_gbps"])
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_characterize_slice_on_the_other_records_like_jax(kernel, target,
+                                                          platform):
+    p, jp = _pair(platform)
+    _assert_result_like_jax(
+        characterize_slice(build_slice(kernel, MATS, p), target, k=5),
+        J.characterize_slice(J.build_slice(kernel, JMATS, jp), target, k=5))
 
 
 def test_compare_platforms_and_groups_like_jax():
@@ -133,14 +160,20 @@ def test_compare_platforms_and_groups_like_jax():
 
 
 def test_characterize_all_defaults_to_the_port_platforms():
-    res = characterize_all(MATS[:10], kernels=("spmv",), k=3)
-    assert [(r.kernel, r.platform) for r in res] == [("spmv", "h100_sxm")]
-    assert set(PLATFORMS) == {"h100_sxm"}
-    # one platform: every top feature is algorithm-intrinsic
-    cmp = compare_platforms(res, top=5)
-    assert cmp["spmv"]["architecture_induced"] == []
-    assert cmp["spmv"]["algorithm_intrinsic"] == sorted(
-        n for n, _ in res[0].importances[:5])
+    """``characterize_all`` runs over the port's three records, in order,
+    and equals the reference's ``characterize_all`` over the same three:
+    every slice's CV and importances, then the split at top 3 and 5."""
+    res = characterize_all(MATS, k=3)
+    want = J.characterize_all(JMATS, platforms=JPLATFORMS, k=3)
+    assert [(r.kernel, r.platform) for r in res] == [
+        (kern, name) for kern in KERNELS
+        for name in ("a100_sxm", "h100_sxm", "l40s")]
+    assert len(res) == len(want)
+    for got, w in zip(res, want):
+        _assert_result_like_jax(got, w)
+    for top in (3, 5):
+        assert compare_platforms(res, top=top) == \
+            J.compare_platforms(want, top=top)
 
 
 # ------------------------------------------- twins of tests/test_charloop.py
@@ -204,6 +237,15 @@ def test_platform_ordering_on_streaming_kernel():
     assert t_v5p <= t_v4
     assert H100_SXM.hbm_bw > V5P.hbm_bw
     assert run_spadd_model(A, B, H100_SXM)[1]["t_total"] <= t_v5p
+    # fig17 on the port's records: bandwidth H100 > A100 > L40S, so the
+    # time never falls and the median GFLOPS never rises down that order
+    order = (H100_SXM, A100_SXM, L40S)
+    assert order[0].hbm_bw > order[1].hbm_bw > order[2].hbm_bw
+    t = [run_spadd_model(A, B, p)[1]["t_total"] for p in order]
+    assert t[0] <= t[1] <= t[2]
+    med = [np.median([run_spadd_model(M, M.transpose(), p)[2]["gflops"]
+                      for _, _, M in MATS]) for p in order]
+    assert med[0] >= med[1] >= med[2]
 
 
 def test_autotuner_selects_and_verifies():
@@ -275,6 +317,24 @@ def test_charloop_findings_on_h100(findings_corpus):
     assert g_spmv["locality"] + g_spmv["size"] + \
         g_spmv["branch/irregularity"] > 0.5
     assert max(g_spmv, key=g_spmv.get) == "size"
+
+
+def test_architecture_induced_split_on_findings_corpus(findings_corpus):
+    """Over the port's three records the split is not degenerate: SpGEMM
+    and SpADD each have features only some records rank (a record's L2,
+    bandwidth and queue depth move which counters matter), and every
+    algorithm-intrinsic feature is in every record's top 5."""
+    res = characterize_all(findings_corpus, k=4)
+    cmp = compare_platforms(res, top=5)
+    for kern in ("spgemm", "spadd"):
+        assert cmp[kern]["architecture_induced"], kern
+    for kern, split in cmp.items():
+        tops = [{n for n, _ in r.importances[:5]} for r in res
+                if r.kernel == kern]
+        assert len(tops) == len(PLATFORMS)
+        assert set(split["algorithm_intrinsic"]) == set.intersection(*tops)
+        assert set(split["architecture_induced"]) == \
+            set.union(*tops) - set.intersection(*tops)
 
 
 # ----------------------------------------------------------------- report
@@ -370,5 +430,7 @@ def test_characterize_example_on_the_cpu():
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     assert "matrix: uniform n=256" in out.stdout
-    assert "h100_sxm  -> plan[spmv]" in out.stdout
+    for name in PLATFORMS:
+        assert f"{name:9s} -> plan[spmv]" in out.stdout
+        assert f"spadd    {name:9s}" in out.stdout
     assert ex.serve_mode.__defaults__ == ("h100_sxm", "cuda")

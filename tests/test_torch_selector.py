@@ -29,7 +29,7 @@ from repro_torch import core as T
 from repro_torch.core import autotune
 from repro_torch.selector import (CACHE_FORMAT_VERSION, ScheduleCache,
                                   SchedulePredictor, SelectorService,
-                                  fingerprint)
+                                  fingerprint, routing_fingerprint)
 from repro_torch.sparse import plan, reset_resilience
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -38,7 +38,10 @@ TOL = dict(rtol=2e-5, atol=2e-5)
 EXACT = dict(rtol=1e-12, atol=0.0)
 # the JAX package's TPU v5e figures, carried across as data
 V5E = T.Platform(**dataclasses.asdict(J.TPU_V5E))
+# the port's NVIDIA records, carried across to the reference as data
 JH100 = J.Platform(**dataclasses.asdict(T.H100_SXM))
+JA100 = J.Platform(**dataclasses.asdict(T.A100_SXM))
+JL40S = J.Platform(**dataclasses.asdict(T.L40S))
 GENS = sorted(T.GENERATORS) + ["zipf"]
 
 
@@ -80,9 +83,10 @@ def test_characterize_and_fingerprint_like_jax(name):
 
 
 @pytest.mark.parametrize("name", GENS)
-@pytest.mark.parametrize("platform", ["h100", "v5e"])
+@pytest.mark.parametrize("platform", ["h100", "v5e", "a100", "l40s"])
 def test_counters_and_modeled_time_like_jax(name, platform):
-    p, jp = (T.H100_SXM, JH100) if platform == "h100" else (V5E, J.TPU_V5E)
+    p, jp = {"h100": (T.H100_SXM, JH100), "v5e": (V5E, J.TPU_V5E),
+             "a100": (T.A100_SXM, JA100), "l40s": (T.L40S, JL40S)}[platform]
     A, jA = _gen(T, name, n=256), _gen(J, name, n=256)
     for bs in (32, 128):
         _assert_dicts_close(T.spmv_counters(A, p, bs, 0.95),
@@ -110,7 +114,8 @@ def test_candidate_grid_and_features_like_jax():
     assert autotune.DENSE_DENSITY_THRESHOLD == \
         jautotune.DENSE_DENSITY_THRESHOLD
     assert T.FEATURE_NAMES == J.FEATURE_NAMES
-    assert T.PLATFORMS == {"h100_sxm": T.H100_SXM}
+    assert list(T.PLATFORMS.items()) == [
+        ("a100_sxm", T.A100_SXM), ("h100_sxm", T.H100_SXM), ("l40s", T.L40S)]
 
 
 # ------------------------------------------------------- tree and tuner
@@ -280,6 +285,50 @@ def test_cache_file_loads_in_the_other_package(tmp_path, writer):
     assert dataclasses.asdict(reread.get(fpr)) == dataclasses.asdict(sched)
     assert reread.telemetry()["corrupt_entries"] == 0
     assert reread.export_state()["entries"][0]["source"] == "verify"
+
+
+def test_cache_written_under_one_record_is_not_read_under_another(tmp_path):
+    """A cache file carries the tuner's ``kernel:platform:rhs`` context:
+    reopened under the record it was written for it serves the pick, under
+    either other record a miss (counted), never another card's pick."""
+    mats = T.corpus(n_matrices=9, n_min=256, n_max=384, seed=3)
+    tuners = {n: T.ScheduleTuner("spmv", p).fit(mats, max_mats=6)
+              for n, p in T.PLATFORMS.items()}
+    A = _gen(T, "zipf", n=320, seed=4)
+    for writer, wt in tuners.items():
+        path = str(tmp_path / f"{writer}.json")
+        svc = SelectorService(wt, cache=ScheduleCache(path=path),
+                              confidence_threshold=0.0, device=CPU)
+        assert [svc.select(A).source for _ in range(2)] == ["tree", "cache"]
+        assert svc.cache.context == f"spmv:{writer}:rhs1"
+        assert svc.cache.flush()
+        for reader, rt in tuners.items():
+            cache = ScheduleCache(path=path)
+            dec = SelectorService(rt, cache=cache, confidence_threshold=0.0,
+                                  device=CPU).select(A)
+            if reader == writer:
+                assert (dec.source, cache.context_misses) == ("cache", 0)
+            else:
+                assert (dec.source, cache.context_misses) == ("tree", 1)
+
+
+def test_moe_tiles_are_cached_per_record():
+    """One ``ScheduleCache`` shared by the three records: the routing
+    fingerprint holds the platform's name, so each record's first lookup
+    of a histogram misses and its second hits its own entry."""
+    from repro_torch.sparse import moe_tile_schedule
+    counts = np.array([1500.0] + [10.0] * 15)
+    cache = ScheduleCache()
+    keys = {n: routing_fingerprint(counts, 512, n).key for n in T.PLATFORMS}
+    assert len(set(keys.values())) == len(T.PLATFORMS)
+    for n, p in T.PLATFORMS.items():
+        misses = cache.misses
+        first = moe_tile_schedule(counts, 512, p, cache=cache)
+        assert cache.misses == misses + 1
+        assert moe_tile_schedule(counts, 512, p, cache=cache) == first
+        assert cache.misses == misses + 1
+        assert first.block_size == T.select_moe_block_size(counts, 512, p)
+    assert len(cache) == len(T.PLATFORMS)
 
 
 # ---------------------------------------------------- plan(selector=...)
