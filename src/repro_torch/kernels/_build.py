@@ -15,8 +15,11 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
+
+from ..obs import trace as obs_trace
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -48,9 +51,14 @@ def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless the hashed library exists; the
     library is written to a temporary name and renamed into place, so
     concurrent builders never load a half-written file."""
+    return _build(name)[0]
+
+
+def _build(name: str) -> Tuple[Path, bool]:
+    """(the library, whether nvcc ran for it)."""
     out = library_path(name)
     if out.exists():
-        return out
+        return out, False
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(prefix=out.name + ".", suffix=".tmp",
                                dir=BUILD_DIR)
@@ -65,15 +73,22 @@ def build(name: str) -> Path:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return out
+    return out, True
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use. The
+    first use in a process is a ``compile`` span: ``key`` the library's
+    name, ``built`` whether nvcc ran (else the hashed ``.so`` was found)
+    and the ``seconds`` it took."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = _LIBS[name] = ctypes.CDLL(str(build(name)))
+            t0 = time.monotonic()
+            with obs_trace.span("compile", name, key=name) as ev:
+                path, built = _build(name)
+                lib = _LIBS[name] = ctypes.CDLL(str(path))
+                ev.update(built=built, seconds=time.monotonic() - t0)
         return lib
 
 

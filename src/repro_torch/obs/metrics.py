@@ -15,6 +15,7 @@ observability substrate must already be safe to hammer concurrently.
 """
 from __future__ import annotations
 
+import bisect
 import math
 import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -51,17 +52,25 @@ class Histogram:
         v = float(value_ms)
         self.count += 1
         self.sum += v
-        self.min = min(self.min, v)
-        self.max = max(self.max, v)
-        i = 0
-        while i < len(HIST_BOUNDS_MS) and v > HIST_BOUNDS_MS[i]:
-            i += 1
-        self.buckets[i] += 1
+        if v < self.min:
+            self.min = v
+        if v > self.max:
+            self.max = v
+        # the first bound >= v (NaN lands in bucket 0, as a scan would)
+        self.buckets[bisect.bisect_left(HIST_BOUNDS_MS, v)] += 1
         if len(self._samples) < self._cap:
             self._samples.append(v)
         else:
             self._samples[self._next] = v
             self._next = (self._next + 1) % self._cap
+
+    def recent(self, n: int) -> List[float]:
+        """The last ``n`` retained samples, oldest first (fewer when the
+        window holds fewer)."""
+        if n <= 0:
+            return []
+        ordered = self._samples[self._next:] + self._samples[:self._next]
+        return ordered[-n:]
 
     def percentile(self, q: float) -> float:
         """Exact percentile over the retained window (numpy's default
@@ -196,8 +205,12 @@ class MetricsRegistry:
 
     def inc(self, name: str, delta: float = 1.0) -> float:
         with self._lock:
-            v = self._counters.get(name, 0.0) + delta
-            self._counters[self._check(name)] = v
+            v = self._counters.get(name)
+            if v is None:                 # a new name: check it once
+                v = 0.0
+                self._check(name)
+            v += delta
+            self._counters[name] = v
             return v
 
     def get(self, name: str) -> float:

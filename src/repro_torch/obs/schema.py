@@ -22,7 +22,8 @@ from typing import Dict, Mapping, Tuple
 #
 #   select      SelectorService decision (cache hit / tree pick / verify sweep)
 #   prep        host-side prep + symbolic phase of a plan build
-#   compile     a jitted executor actually retraced (one per new jit key)
+#   compile     a CUDA library's first load in the process (kernels/_build.py):
+#               whether nvcc ran or the hashed .so was found, and the seconds
 #   launch      one guarded Plan.execute: measured wall-clock vs modeled cost
 #   fallback    the guard dropped one backend rung (pallas->interpret->jnp->dense)
 #   quarantine  an (op, backend, schedule) combo entered the quarantine
@@ -50,11 +51,32 @@ from typing import Dict, Mapping, Tuple
 #   recovery    one incarnation finished restore+replay: how many journal
 #               records were replayed and how many artifacts were dropped
 #               as corrupt on the way
+#
+# Spans below the request-path ones, at the benchmark's layer boundaries
+# (PERF.md §3). Under ``select``:
+#   content_key the sha1 of the CSR's bytes (sparse/prepared.py)
+#   fingerprint the matrix's features, or the memo's (``memo_hit``)
+#   tree        the cost tree's prediction
+#   verify      the model's sweep over the candidates
+# Under ``prep`` (sparse/tensor.py; each also times ``prep_ms.<type>``):
+#   container   the host container a schedule names (BSR index, ELL/SELL
+#               fill)
+#   bucket      the pad of the container to bucket edges
+#   upload      the container's arrays onto the plan's device
+# Under ``launch`` (one Plan.execute):
+#   stage       the runtime input as a blocked float32 tensor on the device
+#   kernel      the host call that enqueues the product
+#   check       the guard's finiteness reductions, enqueued
+#   wait        the host blocked on the verdict's read (the card finishing)
+#   sync        Plan.execute's stream synchronize
 EVENT_TYPES: Tuple[str, ...] = (
     "select", "prep", "compile", "launch", "fallback", "quarantine",
     "shed", "store_evict", "enqueue", "admit", "drain",
     "mutate", "epoch_swap", "drift",
     "checkpoint", "restart", "recovery",
+    "content_key", "fingerprint", "tree", "verify",
+    "container", "bucket", "upload",
+    "stage", "kernel", "check", "wait", "sync",
 )
 
 # Required ``args`` fields per event type — the golden-schema contract a
@@ -78,6 +100,18 @@ EVENT_FIELDS: Dict[str, Tuple[str, ...]] = {
     "checkpoint": ("tick", "outcome"),
     "restart": ("attempt", "reason"),
     "recovery": ("replayed", "dropped_corrupt"),
+    "content_key": (),
+    "fingerprint": ("memo_hit",),
+    "tree": (),
+    "verify": (),
+    "container": ("layout", "block_size", "blocks", "bytes"),
+    "bucket": ("bytes_before", "bytes_after"),
+    "upload": ("bytes",),
+    "stage": (),
+    "kernel": (),
+    "check": (),
+    "wait": (),
+    "sync": (),
 }
 
 # Telemetry keys are flat snake_case identifiers: lowercase alphanumerics

@@ -220,32 +220,38 @@ class SelectorService:
         """The autotune simulation pass, optionally pruned by the tree —
         and always excluding quarantined schedules (unless that empties the
         sweep entirely, in which case the full list is kept and counted)."""
-        candidates = [s for _, s in self.predictor.rank(fp.features)]
-        if self.verify_top_k > 0:
-            candidates = candidates[: self.verify_top_k]
-        avail = [s for s in candidates if not self._quarantined(s)]
-        if avail:
-            candidates = avail
-        else:
-            self._counts["quarantine_overridden"] += 1
-        timed = [(_modeled_time(self.tuner.kernel, A, self.tuner.platform, s), s)
-                 for s in candidates]
-        timed.sort(key=lambda p: p[0])
-        return timed[0][1], timed[0][0]
+        with obs_trace.span("verify", fp.key) as ev:
+            candidates = [s for _, s in self.predictor.rank(fp.features)]
+            if self.verify_top_k > 0:
+                candidates = candidates[: self.verify_top_k]
+            avail = [s for s in candidates if not self._quarantined(s)]
+            if avail:
+                candidates = avail
+            else:
+                self._counts["quarantine_overridden"] += 1
+            timed = [(_modeled_time(self.tuner.kernel, A,
+                                    self.tuner.platform, s), s)
+                     for s in candidates]
+            timed.sort(key=lambda p: p[0])
+            ev["candidates"] = len(timed)
+            return timed[0][1], timed[0][0]
 
     def _fingerprint(self, req: Request) -> Fingerprint:
         from ..sparse.prepared import content_key
-        req.ck = content_key(req.csr)
-        fp = self._fp_memo.get(req.ck)
-        if fp is not None:
-            self._fp_memo.move_to_end(req.ck)
-            self._counts["fp_memo_hits"] += 1
+        with obs_trace.span("content_key", req.name):
+            req.ck = content_key(req.csr)
+        with obs_trace.span("fingerprint", req.name) as ev:
+            fp = self._fp_memo.get(req.ck)
+            ev["memo_hit"] = fp is not None
+            if fp is not None:
+                self._fp_memo.move_to_end(req.ck)
+                self._counts["fp_memo_hits"] += 1
+                return fp
+            fp = fingerprint(req.csr)
+            self._fp_memo[req.ck] = fp
+            while len(self._fp_memo) > self._fp_memo_cap:
+                self._fp_memo.popitem(last=False)
             return fp
-        fp = fingerprint(req.csr)
-        self._fp_memo[req.ck] = fp
-        while len(self._fp_memo) > self._fp_memo_cap:
-            self._fp_memo.popitem(last=False)
-        return fp
 
     def _decide(self, req: Request, batch_id: int) -> Decision:
         """Instrumented decision: a ``select`` span records the outcome
@@ -274,7 +280,8 @@ class SelectorService:
             self._counts["cache_hits"] += 1
             return Decision(req.name, cached, "cache", 1.0, fp.key, None,
                             batch_id, ck=req.ck)
-        pred: Prediction = self.predictor.predict(fp)
+        with obs_trace.span("tree", req.name):
+            pred: Prediction = self.predictor.predict(fp)
         if pred.schedule.backend != "dense" and \
                 self._quarantined(pred.schedule):
             # poisoned tree pick: re-decide through the (filtered) verify

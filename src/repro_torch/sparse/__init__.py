@@ -39,8 +39,8 @@ from .registry import OpSpec, get_op, list_ops, register_op
 from .resilience import (FALLBACK_CHAIN, Deadline, FaultInjector,
                          GuardedExecutor, InjectedFault, NonFiniteOutput,
                          Quarantine, default_executor, default_quarantine,
-                         install_injector, output_finite, register_dense_ref,
-                         reset_resilience, with_backoff)
+                         finite_verdict, install_injector, output_finite,
+                         register_dense_ref, reset_resilience, with_backoff)
 from .tensor import (LAYOUT_FIELDS, ShardedMeta, ShardedSparseTensor,
                      SparseMeta, SparseTensor)
 
@@ -51,7 +51,8 @@ __all__ = [
     "RowPartition", "ShardedMeta", "ShardedSparseTensor", "SlackOverflow",
     "SparseMeta", "SparseTensor",
     "array_key", "bounds_imbalance", "bucket_edge", "content_key",
-    "default_executor", "default_quarantine", "get_op", "install_injector",
+    "default_executor", "default_quarantine", "finite_verdict", "get_op",
+    "install_injector",
     "launch_count", "list_ops", "moe_tile_schedule", "output_finite",
     "partition_rows", "plan", "plan_bucket", "plan_sharded",
     "raw_content_key", "register_dense_ref", "register_op", "reset_counters",

@@ -63,6 +63,7 @@ from ..kernels.flash_attention import ref as FR
 from ..kernels.moe_gmm import kernel as MK
 from ..kernels.moe_gmm import ref as MR
 from ..kernels.moe_gmm.ops import route_and_pad  # noqa: F401  (re-export)
+from ..obs import trace as obs_trace
 from ..selector.fingerprint import routing_fingerprint
 from .plan import Plan
 from .prepared import PreparedStore, array_key, bucket_edge, content_key
@@ -110,14 +111,17 @@ def _as_input(x, device: torch.device) -> torch.Tensor:
 def _run_layout(arrays: Dict[str, torch.Tensor], layout: str,
                 xb: torch.Tensor, backend: str) -> torch.Tensor:
     """One launch of the layout's kernel (or its plain version) on blocked
-    x; arrays and xb may carry a leading member axis."""
+    x; arrays and xb may carry a leading member axis. The ``kernel`` span
+    is the host call that enqueues it."""
     # multi-RHS x has as many dims as blocks: (n_bc, bs, k) vs (nb, bs, bs)
     cuda_fn, plain_fn, count = _MATVEC_FNS[(
         layout, xb.dim() == arrays["blocks"].dim())]
     args = [arrays[k] for k in _LAYOUT_ARGS[layout]] + [xb]
     if backend != "cuda":
-        return plain_fn(*args)
-    return cuda_fn(*args, **{count: arrays[count]})
+        with obs_trace.span("kernel", plain_fn.__name__):
+            return plain_fn(*args)
+    with obs_trace.span("kernel", cuda_fn.__name__):
+        return cuda_fn(*args, **{count: arrays[count]})
 
 
 # ---------------------------------------------------------------------------
@@ -138,21 +142,30 @@ def _block_x(x: torch.Tensor, n_cols: int, n_bc: int, bs: int,
     return xb.reshape(n_bc, bs)
 
 
-def _exec_matvec(st: SparseTensor, x: torch.Tensor, backend: str,
-                 rhs_tile: int) -> torch.Tensor:
-    """y = A @ x (or Y = A @ X for 2-D x) for an ell/sell/dense operand."""
+def _stage_matvec(st: SparseTensor, x: torch.Tensor,
+                  rhs_tile: int) -> torch.Tensor:
+    """x as the operand's kernel takes it: as it is for a dense operand,
+    else padded to the block grid (``_block_x``)."""
     meta = st.meta
     if meta.layout == "dense":
-        return st.arrays["dense"] @ x
+        return x
     if meta.layout not in _LAYOUT_ARGS:
         raise ValueError(f"spmv/spmm cannot execute layout {meta.layout!r}")
     bs = meta.block_size
-    n_bc = -(-meta.shape[1] // bs)
-    xb = _block_x(x, meta.shape[1], n_bc, bs, rhs_tile)
+    return _block_x(x, meta.shape[1], -(-meta.shape[1] // bs), bs, rhs_tile)
+
+
+def _exec_matvec(st: SparseTensor, xb: torch.Tensor, backend: str,
+                 k: int) -> torch.Tensor:
+    """y = A @ x (or Y = A @ X of ``k`` columns, ``k`` = 0 for a vector)
+    on x staged by ``_stage_matvec``, for an ell/sell/dense operand."""
+    meta = st.meta
+    if meta.layout == "dense":
+        with obs_trace.span("kernel", "matmul"):
+            return st.arrays["dense"] @ xb
     y = _run_layout(st.arrays, meta.layout, xb, backend)
-    if x.dim() == 2:
-        return y.reshape(y.shape[0] * y.shape[1], -1)[: meta.shape[0],
-                                                      : x.shape[1]]
+    if k:
+        return y.reshape(y.shape[0] * y.shape[1], -1)[: meta.shape[0], :k]
     return y.reshape(-1)[: meta.shape[0]]
 
 
@@ -192,15 +205,19 @@ def _plan_matvec(operands, schedule: Optional[Schedule], backend: str, *,
     pad_cols = st.meta.shape[1]
 
     def run(x):
-        x = _as_input(x, device)
-        if x.shape[0] != pad_cols:
-            if x.shape[0] != true_cols:
-                raise ValueError(f"{op}: runtime input leading dim "
-                                 f"{x.shape[0]} != operand cols {true_cols}")
-            xp = x.new_zeros((pad_cols,) + tuple(x.shape[1:]))
-            xp[:true_cols] = x
-            x = xp
-        return _exec_matvec(st, x, backend, tile)[:true_rows]
+        with obs_trace.span("stage", op):
+            x = _as_input(x, device)
+            if x.shape[0] != pad_cols:
+                if x.shape[0] != true_cols:
+                    raise ValueError(
+                        f"{op}: runtime input leading dim {x.shape[0]} != "
+                        f"operand cols {true_cols}")
+                xp = x.new_zeros((pad_cols,) + tuple(x.shape[1:]))
+                xp[:true_cols] = x
+                x = xp
+            xb = _stage_matvec(st, x, tile)
+        k = x.shape[1] if x.dim() == 2 else 0
+        return _exec_matvec(st, xb, backend, k)[:true_rows]
 
     return Plan(op=op, schedule=sched, backend=backend, _run=run,
                 device=device, operands=(st,))

@@ -34,7 +34,13 @@ timed into the ``launch_ms.<op>`` histogram, the ``launch`` trace span and
 log10 ratio to it into ``residual_log10.<op>``. ``execute`` synchronises
 the current stream before it reads the clock, so the time is end to end,
 not the enqueue; the guard's finiteness check runs inside the timed launch.
-There is no ``trace_count``: PyTorch runs eagerly and never retraces.
+Of that time, what the host spent outside the guard's ``wait`` for the
+verdict and the ``sync`` goes to ``launch_host_ms.<op>``. Under a tracer,
+one ``plan()`` and one ``execute`` are each one request: ``select`` and
+``prep`` (with ``container`` / ``bucket`` / ``upload``, ``sparse/tensor.py``)
+under the first, ``launch`` (with ``stage`` / ``kernel`` / ``check`` /
+``wait`` / ``sync``) under the second. There is no ``trace_count``:
+PyTorch runs eagerly and never retraces.
 """
 from __future__ import annotations
 
@@ -94,18 +100,29 @@ class Plan:
     # end-to-end time of the most recent execute: the launch, the guard's
     # finiteness check and the stream synchronize
     last_measured_s: Optional[float] = None
+    # of it, the time the host was blocked reading the guard's verdict
+    # (the guard adds it up, across rungs)
+    last_wait_s: float = 0.0
 
     def execute(self, *runtime):
         """Run the planned launch on the runtime inputs (stacked plans run
         their whole bucket here), synchronised and timed into the
-        ``launch_ms.<op>`` histogram and the ``launch`` span."""
-        _bump_launch(self.op)
+        ``launch_ms.<op>`` histogram and the ``launch`` span; the time the
+        host spent in it while not blocked on the card (less the guard's
+        ``wait`` and the ``sync``) goes to ``launch_host_ms.<op>``."""
+        # the launch span holds every event of the execute: its request
         with obs_trace.span("launch", f"{self.op}") as ev:
+            _bump_launch(self.op)
+            self.last_wait_s = 0.0
             t0 = time.monotonic()
             out = self._run(*runtime)
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
-            dt = time.monotonic() - t0
+            t_sync = time.monotonic()
+            with obs_trace.span("sync", f"{self.op}"):
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+            t1 = time.monotonic()
+            dt = t1 - t0
+            host_s = dt - self.last_wait_s - (t1 - t_sync)
             self.last_measured_s = dt
             s = self.schedule
             modeled_ms = (self.modeled_time_s * 1e3
@@ -120,12 +137,14 @@ class Plan:
             ev.update(op=self.op, backend=self.backend, layout=layout,
                       measured_ms=dt * 1e3, modeled_ms=modeled_ms,
                       source=self.source, n_members=self.n_members,
-                      n_shards=self.n_shards)
-        reg = default_registry()
-        reg.observe(f"launch_ms.{self.op}", dt * 1e3)
-        if modeled_ms:
-            reg.observe(f"residual_log10.{self.op}",
-                        math.log10(max(dt * 1e3, 1e-9) / modeled_ms))
+                      n_shards=self.n_shards, host_ms=host_s * 1e3,
+                      wait_ms=self.last_wait_s * 1e3)
+            reg = default_registry()
+            reg.observe(f"launch_ms.{self.op}", dt * 1e3)
+            reg.observe(f"launch_host_ms.{self.op}", host_s * 1e3)
+            if modeled_ms:
+                reg.observe(f"residual_log10.{self.op}",
+                            math.log10(max(dt * 1e3, 1e-9) / modeled_ms))
         return out
 
     __call__ = execute
@@ -226,30 +245,32 @@ def plan(op: str, operands, schedule: Optional[Schedule] = None,
     if executor is None and selector is not None:
         executor = getattr(selector, "executor", None)
     quarantine = executor.quarantine if executor is not None else None
-    if schedule is None and selector is not None:
-        schedule, provenance, operand_key = _resolve_with_selector(
-            selector, operands[0], op, quarantine=quarantine)
-    if schedule is not None and schedule.backend != "dense" \
-            and spec.layouts and schedule.layout not in spec.layouts:
-        raise ValueError(f"op {op!r} supports layouts {spec.layouts}, "
-                         f"schedule asks for {schedule.layout!r}")
-    if store is not None and spec.planner_store_ok:
-        op_kwargs = dict(op_kwargs, store=store)
-        if operand_key is not None and spec.planner_operand_key_ok:
-            op_kwargs.setdefault("operand_key", operand_key)
-    # guarded build + guarded launch (DESIGN.md §11): transient prep faults
-    # retry, persistent ones degrade to the op's dense reference (on the
-    # CPU; on the card they raise); every execute runs through the backend
-    # fallback ladder, whose rebuild prepares one rung down through the
-    # same store
-    dense_run = resilience.make_dense_run(op, operands, schedule,
-                                          dict(op_kwargs, device=dev))
-    with obs_trace.span("prep", f"plan:{op}", op=op):
-        p = resilience.guarded_build(
-            lambda: spec.planner(operands, schedule, backend, device=dev,
-                                 **op_kwargs),
-            op=op, schedule=schedule, dense_run=dense_run,
-            executor=executor)
+    # one request: the selector's pick and the host prep
+    with obs_trace.request():
+        if schedule is None and selector is not None:
+            schedule, provenance, operand_key = _resolve_with_selector(
+                selector, operands[0], op, quarantine=quarantine)
+        if schedule is not None and schedule.backend != "dense" \
+                and spec.layouts and schedule.layout not in spec.layouts:
+            raise ValueError(f"op {op!r} supports layouts {spec.layouts}, "
+                             f"schedule asks for {schedule.layout!r}")
+        if store is not None and spec.planner_store_ok:
+            op_kwargs = dict(op_kwargs, store=store)
+            if operand_key is not None and spec.planner_operand_key_ok:
+                op_kwargs.setdefault("operand_key", operand_key)
+        # guarded build + guarded launch (DESIGN.md §11): transient prep
+        # faults retry, persistent ones degrade to the op's dense reference
+        # (on the CPU; on the card they raise); every execute runs through
+        # the backend fallback ladder, whose rebuild prepares one rung down
+        # through the same store
+        dense_run = resilience.make_dense_run(op, operands, schedule,
+                                              dict(op_kwargs, device=dev))
+        with obs_trace.span("prep", f"plan:{op}", op=op):
+            p = resilience.guarded_build(
+                lambda: spec.planner(operands, schedule, backend, device=dev,
+                                     **op_kwargs),
+                op=op, schedule=schedule, dense_run=dense_run,
+                executor=executor)
     resilience.guard_plan(
         p, rebuild=lambda b: spec.planner(operands, schedule, b, device=dev,
                                           **op_kwargs),

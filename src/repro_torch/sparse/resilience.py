@@ -484,6 +484,23 @@ def _float_leaves(out: Any) -> List:
     return []
 
 
+def finite_verdict(out: Any):
+    """Enqueue the finiteness check of an op output (``output_finite``
+    without the read): False or True where the host can tell at once (a
+    non-finite numpy leaf; no float leaf), else a one-element boolean
+    tensor on the leaves' device that the reductions will fill."""
+    extrema: List[torch.Tensor] = []
+    for leaf in _float_leaves(out):
+        if isinstance(leaf, np.ndarray):
+            if not np.isfinite(leaf).all():
+                return False
+        elif leaf.numel():
+            extrema += [m.reshape(1) for m in torch.aminmax(leaf)]
+    if not extrema:
+        return True
+    return torch.isfinite(torch.cat(extrema)).all()
+
+
 def output_finite(out: Any) -> bool:
     """True if every float leaf of an op output is finite. Understands the
     facade's output shapes: tensors (on any device) and numpy arrays,
@@ -496,15 +513,9 @@ def output_finite(out: Any) -> bool:
     and that read is the launch's one wait (``Plan.execute``'s stream
     synchronize then finds the stream idle). Latency-critical callers can
     disable the check with ``GuardedExecutor(nan_guard=False)`` or
-    ``REPRO_NAN_GUARD=0``."""
-    extrema: List[torch.Tensor] = []
-    for leaf in _float_leaves(out):
-        if isinstance(leaf, np.ndarray):
-            if not np.isfinite(leaf).all():
-                return False
-        elif leaf.numel():
-            extrema += [m.reshape(1) for m in torch.aminmax(leaf)]
-    return not extrema or bool(torch.isfinite(torch.cat(extrema)).all())
+    ``REPRO_NAN_GUARD=0``. ``finite_verdict`` is the check without the
+    read."""
+    return bool(finite_verdict(out))
 
 
 class GuardedExecutor:
@@ -624,6 +635,18 @@ def guarded_build(build: Callable[[], Any], *, op: str, schedule=None,
                         n_members=n_members)
 
 
+def _checked(out: Any, op: str, p) -> bool:
+    """``output_finite`` in its two spans: the ``check`` enqueue, then the
+    ``wait`` for the verdict, whose time is added to ``p.last_wait_s``."""
+    with obs_trace.span("check", op):
+        verdict = finite_verdict(out)
+    t = time.monotonic()
+    with obs_trace.span("wait", op):
+        ok = bool(verdict)
+    p.last_wait_s += time.monotonic() - t
+    return ok
+
+
 def guard_plan(p, rebuild: Optional[Callable] = None,
                dense_run: Optional[Callable] = None, *,
                site: str = "launch",
@@ -681,7 +704,7 @@ def guard_plan(p, rebuild: Optional[Callable] = None,
                         state["run"] = rebuild(b)._run
                         p.backend = b
                     out = state["run"](*runtime)
-                if ex.nan_guard and not output_finite(out):
+                if ex.nan_guard and not _checked(out, op, p):
                     raise NonFiniteOutput(
                         f"{op} produced non-finite output on backend {b!r}")
                 if b == "dense":

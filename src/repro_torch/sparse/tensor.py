@@ -29,8 +29,10 @@ slots or cells per row and a pool of spare zero blocks, and
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple, Union
+import time
+from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -39,6 +41,8 @@ from ..core.autotune import SELL_SIGMA, Schedule
 from ..core.csr import BSR, CSR, ELLBSR, SELLBSR, ell_block_cap
 from ..kernels.bsr_spmv.ops import sell_cell_valid, sell_row_ptr
 from ..kernels.common import resolve_device
+from ..obs import default_registry
+from ..obs import trace as obs_trace
 from .prepared import bucket_edge
 
 HostLayout = Union[ELLBSR, SELLBSR, BSR, np.ndarray]
@@ -52,6 +56,55 @@ LAYOUT_FIELDS: Dict[str, Tuple[str, ...]] = {
     "bsr": ("block_ptrs", "block_cols", "blocks"),
     "dense": ("dense",),
 }
+
+
+def _host_layout(container: HostLayout) -> str:
+    """The layout name of a host container."""
+    if isinstance(container, ELLBSR):
+        return "ell"
+    if isinstance(container, SELLBSR):
+        return "sell"
+    if isinstance(container, BSR):
+        return "bsr"
+    return "dense"
+
+
+def _host_nbytes(container: HostLayout) -> int:
+    """The bytes of a host container's arrays."""
+    if isinstance(container, np.ndarray):
+        return int(container.nbytes)
+    return sum(int(v.nbytes) for v in vars(container).values()
+               if isinstance(v, np.ndarray))
+
+
+@contextlib.contextmanager
+def _prep_phase(kind: str, name: str) -> Iterator[Dict]:
+    """One phase of a container's build: a ``kind`` span (its fields are
+    yielded) and, when the phase completes, its wall time in the
+    ``prep_ms.<kind>`` histogram, observed whether or not a tracer is
+    installed."""
+    t0 = time.monotonic()
+    with obs_trace.span(kind, name) as ev:
+        yield ev
+    default_registry().observe(f"prep_ms.{kind}",
+                               (time.monotonic() - t0) * 1e3)
+
+
+def _blocked_container(csr: CSR, schedule: Schedule, layout: Optional[str],
+                       sigma: int, max_blocks: Optional[int],
+                       full_rows: bool) -> HostLayout:
+    """``SparseTensor.build_container`` for a blocked schedule."""
+    bsr = BSR.from_csr(csr, schedule.block_size)
+    if layout == "bsr":
+        return bsr
+    if schedule.layout == "sell":
+        return SELLBSR.from_bsr(bsr, max(schedule.slice_height, 1), sigma)
+    mb = max_blocks
+    if full_rows:
+        mb = None
+    elif mb is None and schedule.ell_quantile < 1.0:
+        mb = ell_block_cap(bsr.blocks_per_row(), schedule.ell_quantile)
+    return ELLBSR.from_bsr(bsr, mb)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,19 +196,20 @@ class SparseTensor:
         0``) must not drop tail blocks, or a later delta on a dropped
         position would look like an insert and land in slack with only the
         delta's values, losing the base values."""
-        if schedule.backend == "dense":
-            return csr.to_dense()
-        bsr = BSR.from_csr(csr, schedule.block_size)
-        if layout == "bsr":
-            return bsr
-        if schedule.layout == "sell":
-            return SELLBSR.from_bsr(bsr, max(schedule.slice_height, 1), sigma)
-        mb = max_blocks
-        if full_rows:
-            mb = None
-        elif mb is None and schedule.ell_quantile < 1.0:
-            mb = ell_block_cap(bsr.blocks_per_row(), schedule.ell_quantile)
-        return ELLBSR.from_bsr(bsr, mb)
+        dense = schedule.backend == "dense"
+        with _prep_phase("container", "dense" if dense
+                        else layout or schedule.layout) as ev:
+            if dense:
+                out: HostLayout = csr.to_dense()
+                ev.update(layout="dense", block_size=0, blocks=0)
+            else:
+                out = _blocked_container(csr, schedule, layout, sigma,
+                                         max_blocks, full_rows)
+                ev.update(layout=_host_layout(out),
+                          block_size=out.block_size,
+                          blocks=int(out.blocks.shape[0]))
+            ev["bytes"] = _host_nbytes(out)
+        return out
 
     @staticmethod
     def default_schedule(block_size: int = 128, layout: Optional[str] = None,
@@ -207,7 +261,11 @@ class SparseTensor:
         live_cells = (container.n_cells if isinstance(container, SELLBSR)
                       else None)
         if shape_bucket:
-            container = pad_container_to_bucket(container)
+            with _prep_phase("bucket", _host_layout(container)) as ev:
+                before = _host_nbytes(container)
+                container = pad_container_to_bucket(container)
+                ev.update(bytes_before=before,
+                          bytes_after=_host_nbytes(container))
         st = cls.from_layout(container, schedule=schedule, device=dev,
                              live_cells=live_cells, zero_idx=zero_idx)
         st.true_shape = (int(csr.shape[0]), int(csr.shape[1]))
@@ -226,9 +284,22 @@ class SparseTensor:
         count: ``cell_ptr`` gives its last row one pad cell, see
         ``sell_row_ptr``). ``zero_idx`` is the index of the all-zeros block
         the pad slots and cells point at (default the last block, right for
-        unbucketed containers only)."""
+        unbucketed containers only). The arrays' copy onto ``device`` is
+        the ``upload`` phase (``_prep_phase``)."""
         dev = resolve_device(device)
+        with _prep_phase("upload", _host_layout(container)) as ev:
+            st = cls._from_host(container, schedule, dev, live_cells,
+                                zero_idx)
+            ev.update(bytes=sum(t.numel() * t.element_size()
+                                for t in st.arrays.values()))
+        return st
 
+    @classmethod
+    def _from_host(cls, container: HostLayout,
+                   schedule: Optional[Schedule], dev: torch.device,
+                   live_cells: Optional[int],
+                   zero_idx: Optional[int]) -> "SparseTensor":
+        """``from_layout`` on a resolved device."""
         def put(a, dtype):
             a = np.ascontiguousarray(a)
             if not a.flags.writeable:     # e.g. leaves handed over by JAX
