@@ -38,14 +38,16 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
   2b. selector phase, ``{"selector": ...}`` lines: ``ScheduleTuner("spmv",
      H100_SXM)`` and its ``n_rhs=8`` twin fit (and timed) on the serve
      CLI's default corpus; one ``SelectorService`` each
-     (``confidence_threshold=0``: the tree serves, as the verify sweep
-     densifies every candidate on the host; a ``ScheduleCache``; a
-     ``PreparedStore`` that holds the picked operand) serves two ticks of
-     ``process_pending(backend="auto")`` over ``gen_spatial(SERVE_N)`` and
-     the four zipf members (dense shortcut: ``torch.matmul``), each with
-     its x (k = 1) or X (k = 8); every output within ``1e-4 * max|ref|`` of
-     the float64 oracle, tick 2 all cache hits and no store miss (no host
-     prep), and the picked layouts' SpMV/SpMM kernels launched (counts
+     (``confidence_threshold=0``: the tree serves inside its corpus, as
+     the verify sweep densifies every candidate on the host, and past it,
+     ``gen_spatial(SERVE_N)`` among them, the bytes route; a
+     ``ScheduleCache``; a ``PreparedStore`` that holds the picked operand)
+     serves two ticks of ``process_pending(backend="auto")`` over
+     ``gen_spatial(SERVE_N)`` and the four zipf members (dense shortcut:
+     ``torch.matmul``), each with its x (k = 1) or X (k = 8); every
+     output within ``1e-4 * max|ref|`` of the float64 oracle, tick 2 all
+     cache hits and no store miss (no host prep), and the picked layouts'
+     SpMV/SpMM kernels launched (counts
      zeroed before the phase); each decision's source, schedule,
      confidence, modeled and measured ms and residual, the service
      telemetry and peak memory are printed, and each picked kernel gets a
@@ -55,15 +57,17 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      bytes they imply (from block counts, ``"served": false``);
   2c. engine phase, ``{"engine": ...}`` lines: ``ScheduleTuner("spmv",
      H100_SXM)`` fit on the serve CLI's corpus; ``ServingEngine``s over
-     ``SelectorService(confidence_threshold=0, device="cuda")`` (the tree
-     serves: the verify sweep would build every candidate's BSR on the
-     host, which cannot run at this scale) and ONE ``PreparedStore`` (48
-     GiB budget) shared by every engine of the phase, so host prep is paid
-     once; tenants ``tenant_population(8, 16384..65536, seed=500)`` (the
-     serve CLI's population seed; each tenant's pick, confidence, block
-     bytes, first fingerprint and ``content_key`` time printed) with RHS
-     ``tenant_rhs(seed=0)``. Each replay warms a fresh engine (drains of
-     1, 2, 4 and 8 per tenant, then ``reset_metrics``) and replays
+     ``SelectorService(confidence_threshold=0, device="cuda")`` (every
+     tenant lies past the corpus, so the bytes route serves; the verify
+     sweep would build every candidate's BSR on the host, which cannot
+     run at this scale) and ONE ``PreparedStore`` (48 GiB budget) shared
+     by every engine of the phase, so host prep is paid once; tenants
+     ``tenant_population(8, 16384..65536, seed=500)`` (the serve CLI's
+     population seed; each tenant's pick (from a twin service), its
+     source, confidence, block bytes, first fingerprint and
+     ``content_key`` time printed) with RHS ``tenant_rhs(seed=0)``. Each
+     replay warms a fresh engine (drains of 1, 2, 4 and 8 per tenant,
+     then ``reset_metrics``) and replays
      ``generate_trace(256, qps, 8, a=1.1, seed=0)``: ``sub`` (50 qps) and
      ``sat`` (800 qps) at ``slot_max=8, slo_ms=25``, ``nobatch`` (800 qps,
      ``batching=False``), ``overload`` (800 qps, ``deadline_ms=40``,
@@ -95,7 +99,7 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      architecture-induced, and the fig17 check: SpADD's median modeled
      GFLOPS H100 >= A100 >= L40S, the records' bandwidth order); then,
      under a ``Tracer``, every engine tenant
-     planned at the tree's pick of the selector phase's SpMV and SpMM
+     planned at the service's pick of the selector phase's SpMV and SpMM
      tuners (through ``SelectorService(confidence_threshold=0)``; SpMV
      from the engine's shared store, SpMM one tenant at a time), each
      plan executed 10 times and checked against the float64 oracle; the
@@ -351,15 +355,14 @@ BF16_TOL = 3e-2                    # the JAX bf16 attention test's
 SELECTOR_CORPUS = {"n_matrices": 18, "n_min": 256, "n_max": 768, "seed": 0}
 # the byte budget of every phase's PreparedStore on the 80 GB card
 STORE_BYTES = 48 << 30
-# the selector phase serves gen_spatial(SERVE_N): at 131072 the tree's
-# bs=256 ELL pick is 27.9 GB of blocks (34.4 GB shape-bucketed, held on the
-# host and the card once per prepared operand, and copied again into the
-# bucket's stack), so 65536 (11.1 GB of blocks) is served and 131072 and
-# 524288 are only picked
+# the selector phase serves gen_spatial(SERVE_N) (the bytes route's bs=32
+# SELL pick); 131072 and 524288 are only picked by the tree, whose bs=256
+# ELL pick at 131072 is 27.9 GB of blocks (34.4 GB shape-bucketed)
 SERVE_N = 65536
 # the engine phase's tenants: the serve CLI's population (seed + 500) at
-# 16384-65536 rows, cut from SuiteSparse's 10^5-10^7; the tree picks bs=256
-# ELL for all eight, ~19 GB of blocks (at 32768-131072, ~72 GB)
+# 16384-65536 rows, cut from SuiteSparse's 10^5-10^7; past the corpus the
+# service picks bs=32 for all eight, 3.35 GB of blocks (the tree picked
+# bs=256 ELL, ~19 GB)
 ENGINE_POP = {"n_tenants": 8, "n_min": 16384, "n_max": 65536, "seed": 500}
 ENGINE_REQUESTS = 256
 ENGINE_KW = {"slot_max": 8, "slo_ms": 25.0}
@@ -908,23 +911,22 @@ def block_bytes(A, bs: int) -> dict:
     of the shape-bucketed block array a plan stores (``bucket_edge`` of
     the blocks plus the zero block) and of an ELL pass over every slot
     (block-rows x widest row)."""
+    from repro_torch.selector.streamed import block_patterns
     from repro_torch.sparse import bucket_edge
-    n_br, n_bc = -(-A.shape[0] // bs), -(-A.shape[1] // bs)
-    rows = np.repeat(np.arange(A.shape[0], dtype=np.int64) // bs,
-                     A.row_lengths())
-    keys = np.unique(rows * n_bc + A.col_idxs.astype(np.int64) // bs)
-    per_row = np.bincount(keys // n_bc, minlength=n_br)
+    p = block_patterns(A, [bs])[bs]
     tile = bs * bs * 4
-    return {"blocks": int(keys.size), "block_bytes": int(keys.size) * tile,
-            "bucketed_block_bytes": bucket_edge(int(keys.size) + 1) * tile,
-            "ell_slot_bytes": n_br * int(per_row.max()) * tile}
+    widest = int(p.blocks_per_row.max())
+    return {"blocks": p.n_blocks, "block_bytes": p.n_blocks * tile,
+            "bucketed_block_bytes": bucket_edge(p.n_blocks + 1) * tile,
+            "ell_slot_bytes": p.n_block_rows * widest * tile}
 
 
 def run_selector(device: str, serve_n: int, big, members, seed: int,
                  timer) -> dict:
     """The selector phase: two fitted ``ScheduleTuner``s (SpMV and SpMM at
     k = 8, the serve CLI's corpus, the ``H100_SXM`` record), one
-    ``SelectorService`` each (the tree serves: ``confidence_threshold=0``;
+    ``SelectorService`` each (``confidence_threshold=0``: the tree serves
+    inside its corpus, the bytes route past it;
     a ``ScheduleCache``; a store that holds the picked operand), two ticks
     of ``process_pending(backend="auto")`` over ``gen_spatial(serve_n)``
     and the zipf members, every output against the float64 oracle; tick 2
@@ -1124,15 +1126,16 @@ def engine_split(ticks: list, tracer, rep: dict, hash_ms: float) -> dict:
 
 
 def run_engine(device: str, pop: dict, timer) -> tuple:
-    """The engine phase: ``ServingEngine`` over a tree-served
-    ``SelectorService`` (``confidence_threshold=0``: the verify sweep would
-    build every candidate's BSR on the host, which cannot run at this
-    scale), one ``PreparedStore`` shared by every engine of the phase (the
-    host prep is paid once), the population ``tenant_population(**pop)``
-    and its RHS ``tenant_rhs(seed=0)``. Each replay of ``ENGINE_REPLAYS``
-    warms a fresh engine (drains of 1, 2, 4 and 8 per tenant, then
-    ``reset_metrics``) and replays ``generate_trace(256, qps, a=1.1,
-    seed=0)``; then the crash replay runs under ``run_with_restarts``.
+    """The engine phase: ``ServingEngine`` over a ``SelectorService``
+    (``confidence_threshold=0``: past the corpus the bytes route serves;
+    the verify sweep would build every candidate's BSR on the host, which
+    cannot run at this scale), one ``PreparedStore`` shared by every
+    engine of the phase (the host prep is paid once), the population
+    ``tenant_population(**pop)`` and its RHS ``tenant_rhs(seed=0)``. Each
+    replay of ``ENGINE_REPLAYS`` warms a fresh engine (drains of 1, 2, 4
+    and 8 per tenant, then ``reset_metrics``) and replays
+    ``generate_trace(256, qps, a=1.1, seed=0)``; then the crash replay runs
+    under ``run_with_restarts``.
     Launch counts are zeroed just before each replay and read just after.
     Returns the kernel rows on the hottest large tenant's served operand,
     the replays' launches, and the population with the shared store (the
@@ -1142,8 +1145,8 @@ def run_engine(device: str, pop: dict, timer) -> tuple:
                                   spmm_oracle, spmv_oracle)
     from repro_torch.kernels.bsr_spmv import kernel as K
     from repro_torch.obs import Tracer, install_tracer
-    from repro_torch.selector import (ScheduleCache, SchedulePredictor,
-                                      SelectorService, fingerprint)
+    from repro_torch.selector import (ScheduleCache, SelectorService,
+                                      fingerprint)
     from repro_torch.serving import (EngineCheckpoint, RequestJournal,
                                      ServingEngine, generate_trace,
                                      reconcile, replay, run_with_restarts,
@@ -1163,7 +1166,10 @@ def run_engine(device: str, pop: dict, timer) -> tuple:
     emit({"engine": {"population": pop, "fit_s": fit_s,
                      "population_s": time.monotonic() - t0,
                      "corpus": SELECTOR_CORPUS, "platform": "h100_sxm"}})
-    predictor = SchedulePredictor(tuner)
+    # the engine's service picks what this twin picks: selection builds
+    # nothing (the tree inside the corpus, the bytes route past it)
+    twin = SelectorService(tuner, cache=ScheduleCache(),
+                           confidence_threshold=0.0, device=device)
     picks, ck_ms, tenant_bytes = [], [], []
     for name, A in population:
         t0 = time.monotonic()
@@ -1175,15 +1181,16 @@ def run_engine(device: str, pop: dict, timer) -> tuple:
             content_key(A)
             hashes.append((time.monotonic() - t0) * 1e3)
         ck_ms.append(statistics.median(hashes))
-        pred = predictor.predict(fp)
-        picks.append(pred.schedule)
-        nbytes = (block_bytes(A, pred.schedule.block_size)
-                  if pred.schedule.backend == "bsr" else {})
+        dec = twin.select(A, name=name)
+        picks.append(dec.schedule)
+        nbytes = (block_bytes(A, dec.schedule.block_size)
+                  if dec.schedule.backend == "bsr" else {})
         tenant_bytes.append(nbytes.get("block_bytes", 0))
         emit({"engine": {"tenant": name, "rows": A.shape[0], "nnz": A.nnz,
-                         "schedule": describe(pred.schedule),
-                         "confidence": pred.confidence,
-                         "modeled_ms": pred.tree_time_s * 1e3,
+                         "schedule": describe(dec.schedule),
+                         "source": dec.source,
+                         "confidence": dec.confidence,
+                         "modeled_ms": dec.modeled_time_s * 1e3,
                          "fingerprint_s": fp_s,
                          "content_key_ms": ck_ms[-1], **nbytes}})
     check(all(s.backend == "bsr" for s in picks),
@@ -1348,9 +1355,12 @@ def run_engine(device: str, pop: dict, timer) -> tuple:
         f"{summary['replayed']:.0f} replayed, mttr "
         f"{summary['mttr_ms']:.1f} ms, {crash_s:.1f}s")
     emit({"engine": {"launches": launches}})
-    for name in ("bsr_spmv_ell", "bsr_spmm_ell"):
-        check(launches.get(name, 0) > 0,
-              f"engine: {name} launched by the engine's drains")
+    for layout in sorted({s.layout for s in picks}):
+        check(launches.get(f"bsr_spmv_{layout}", 0)
+              + launches.get(f"bsr_spmm_{layout}", 0) > 0,
+              f"engine: the {layout} picks launched by the engine's drains")
+    check(launches.get("bsr_spmm_ell", 0) + launches.get("bsr_spmm_sell", 0)
+          > 0, "engine: a content-pure bucket launched an SpMM kernel")
 
     # the picked kernels' rows on the hottest large tenant's (the hottest
     # with an eighth of the largest's block bytes) served operand, from
@@ -1388,7 +1398,7 @@ def run_charloop(device: str, tuners: dict, population, store,
     importances and groups, then ``compare_platforms`` and the fig17
     check (SpADD's median modeled GFLOPS never lower under a record with
     more bandwidth). Card step, under a ``Tracer``: each tenant of
-    ``population`` planned at the tree's pick of each fitted tuner in
+    ``population`` planned at the service's pick of each fitted tuner in
     ``tuners`` (SpMV at k = 1 through the engine phase's ``store``, which
     holds those picks; SpMM at k = 8 without a store, one tenant at a
     time), each plan executed ``CHARLOOP_EXECUTES`` times against the
@@ -1510,7 +1520,7 @@ def run_charloop(device: str, tuners: dict, population, store,
 
 def plan_tenants(device: str, tuners: dict, population, store,
                  rng) -> list:
-    """Each tenant of ``population`` planned at the tree's pick of each
+    """Each tenant of ``population`` planned at the service's pick of each
     tuner in ``tuners`` (k -> tuner; SpMV at k = 1 through ``store``, SpMM
     at k = 8 without one), executed ``CHARLOOP_EXECUTES`` times and held
     against the float64 oracle of the matrix its schedule serves. Returns
@@ -1876,8 +1886,7 @@ def run_sharded(device: str, spatial, zipf, tuner, population, seed: int,
     import torch
     from repro_torch.core import Schedule, spmm_oracle, spmv_oracle
     from repro_torch.kernels.bsr_spmv import kernel as K
-    from repro_torch.selector import (ScheduleCache, SchedulePredictor,
-                                      SelectorService, fingerprint)
+    from repro_torch.selector import ScheduleCache, SelectorService
     from repro_torch.sparse import (PreparedStore, launch_count,
                                     partition_rows, plan, plan_sharded,
                                     reset_counters)
@@ -1972,10 +1981,12 @@ def run_sharded(device: str, spatial, zipf, tuner, population, seed: int,
                         (f"engine {big_name}", big)):
         part = partition_rows(A, n, "nnz")
         shards = part.slice(A)
-        # what the tree's picks would hold, reckoned before anything is
-        # built (the stacked launch pads every shard to the largest)
-        picks = [SchedulePredictor(tuner).predict(fingerprint(c)).schedule
-                 for c in shards]
+        # what the service's picks would hold, reckoned by a twin service
+        # before anything is built (selection builds nothing; the stacked
+        # launch pads every shard to the largest)
+        twin = SelectorService(tuner, cache=ScheduleCache(),
+                               confidence_threshold=0.0, device=device)
+        picks = [d.schedule for d in twin.select_shards(shards)]
         held = [block_bytes(c, s.block_size) if s.backend == "bsr" else
                 {"dense_bytes": c.shape[0] * c.shape[1] * 4}
                 for c, s in zip(shards, picks)]
@@ -1996,7 +2007,7 @@ def run_sharded(device: str, spatial, zipf, tuner, population, seed: int,
         cold_s = time.monotonic() - t0
         got = [pr["schedule"] for pr in p.shard_provenance]
         check(got == picks, f"sharded selection {inp_name}: the service "
-              "picks what the tree was reckoned with")
+              "picks what its twin was reckoned with")
         # a q < 1 ELL pick serves its shard without the blocks past its
         # row cap: the oracle is the matrix each shard's schedule serves
         ref = np.concatenate([spmv_oracle(served_matrix(c, s), x)

@@ -58,6 +58,8 @@ from typing import Dict, Mapping, Tuple
 #   fingerprint the matrix's features, or the memo's (``memo_hit``)
 #   tree        the cost tree's prediction
 #   verify      the model's sweep over the candidates
+#   bytes       past the tree's corpus: the candidates ranked by the bytes
+#               the counted kernels stream (selector/streamed.py)
 # Under ``prep`` (sparse/tensor.py; each also times ``prep_ms.<type>``):
 #   container   the host container a schedule names (BSR index, ELL/SELL
 #               fill)
@@ -74,7 +76,7 @@ EVENT_TYPES: Tuple[str, ...] = (
     "shed", "store_evict", "enqueue", "admit", "drain",
     "mutate", "epoch_swap", "drift",
     "checkpoint", "restart", "recovery",
-    "content_key", "fingerprint", "tree", "verify",
+    "content_key", "fingerprint", "tree", "verify", "bytes",
     "container", "bucket", "upload",
     "stage", "kernel", "check", "wait", "sync",
 )
@@ -104,6 +106,7 @@ EVENT_FIELDS: Dict[str, Tuple[str, ...]] = {
     "fingerprint": ("memo_hit",),
     "tree": (),
     "verify": (),
+    "bytes": ("candidates", "eligible", "streamed_bytes", "modeled_ms"),
     "container": ("layout", "block_size", "blocks", "bytes"),
     "bucket": ("bytes_before", "bytes_after"),
     "upload": ("bytes",),

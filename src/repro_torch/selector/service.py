@@ -14,6 +14,12 @@ Request path (DESIGN.md §7):
                               |
                               +--> cache.put + retraining example
 
+Past the corpus (a request more than twice the largest matrix the tree
+was fitted on, in rows and in nonzeros: ``streamed.OUT_OF_DOMAIN_LOG10``),
+a cache miss skips the tree: the lossless candidate that streams the
+fewest bytes through the counted kernels is served (source ``bytes``) and
+cached, and no retraining example is kept (its label is not the model's).
+
 Batching: requests drained per ``process_pending`` call are bucketed by the
 selected schedule, because the schedule picks the kernel — matrices in one
 bucket share one kernel (same layout / block size / slice height / RHS
@@ -32,15 +38,23 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..core.autotune import Schedule, ScheduleTuner, _modeled_time
+from ..core.autotune import (DENSE_DENSITY_THRESHOLD, Schedule,
+                             ScheduleTuner, _modeled_time)
 from ..core.csr import CSR
 from ..obs import CounterDict, default_registry, ordered
 from ..obs import trace as obs_trace
 from ..sparse import resilience
 from ..sparse.resilience import Deadline
+from . import streamed
 from .cache import ScheduleCache
 from .fingerprint import Fingerprint, fingerprint
 from .predictor import Prediction, SchedulePredictor, retraining_row
+
+
+# Counters the reference's service lacks: a checkpoint carries one only
+# once it has counted, so a service that never left the corpus writes the
+# reference's counts key for key, and either package restores the other's.
+PORT_ONLY_COUNTS = ("out_of_domain",)
 
 
 @dataclasses.dataclass
@@ -56,7 +70,7 @@ class Request:
 class Decision:
     name: str
     schedule: Schedule
-    source: str              # "cache" | "tree" | "verify"
+    source: str              # "cache" | "tree" | "verify" | "bytes"
     confidence: float
     fingerprint_key: str
     modeled_time_s: Optional[float]
@@ -148,7 +162,8 @@ class SelectorService:
             "ticks", "fp_memo_hits", "shard_requests", "sharded_plans",
             "shed_requests", "degraded_ticks", "degraded_served",
             "quarantine_blocked", "quarantine_overridden",
-            "negative_examples", "exec_retries", "failed_executions"))
+            "negative_examples", "exec_retries", "failed_executions",
+            "out_of_domain"))
         self._bucket_sizes: List[int] = []
         # fp.key -> retraining example appended this tick, so a measured
         # launch can attach its wall-clock + residual to the example before
@@ -236,6 +251,31 @@ class SelectorService:
             ev["candidates"] = len(timed)
             return timed[0][1], timed[0][0]
 
+    def _bytes_pick(self, req: Request, fp: Fingerprint,
+                    batch_id: int) -> Decision:
+        """Past the corpus: the lossless, unquarantined candidate that
+        streams the fewest bytes, modeled at those bytes over the
+        platform's HBM bandwidth (a quarantine that blocks every lossless
+        candidate is overridden and counted, as in ``_verify``)."""
+        with obs_trace.span("bytes", req.name) as ev:
+            ranked = streamed.rank_by_bytes(req.csr, self.predictor.candidates,
+                                            self.tuner.n_rhs)
+            avail = [c for c in ranked if not self._quarantined(c.schedule)]
+            if avail:
+                ranked = avail
+            else:
+                self._counts["quarantine_overridden"] += 1
+            best = ranked[0]
+            t = best.bytes / self.tuner.platform.hbm_bw
+            ev.update(candidates=len(self.predictor.candidates),
+                      eligible=len(ranked), streamed_bytes=best.bytes,
+                      modeled_ms=t * 1e3)
+        self._counts["out_of_domain"] += 1
+        self._metrics.registry.inc("select_out_of_domain")
+        self.cache.put(fp, best.schedule, "bytes", t)
+        return Decision(req.name, best.schedule, "bytes", 1.0, fp.key, t,
+                        batch_id, ck=req.ck)
+
     def _fingerprint(self, req: Request) -> Fingerprint:
         from ..sparse.prepared import content_key
         with obs_trace.span("content_key", req.name):
@@ -280,6 +320,10 @@ class SelectorService:
             self._counts["cache_hits"] += 1
             return Decision(req.name, cached, "cache", 1.0, fp.key, None,
                             batch_id, ck=req.ck)
+        if fp.features.get("density", 0.0) <= DENSE_DENSITY_THRESHOLD and \
+                streamed.past_extent(fp.features,
+                                     streamed.training_extent(self.tuner)):
+            return self._bytes_pick(req, fp, batch_id)
         with obs_trace.span("tree", req.name):
             pred: Prediction = self.predictor.predict(fp)
         if pred.schedule.backend != "dense" and \
@@ -538,7 +582,8 @@ class SelectorService:
         buffers cannot be checkpointed and the store cold-rebuilds on miss
         by design."""
         return {
-            "counts": {k: int(v) for k, v in self._counts.items()},
+            "counts": {k: int(v) for k, v in self._counts.items()
+                       if v or k not in PORT_ONLY_COUNTS},
             "retraining_examples": [dict(ex)
                                     for ex in self.retraining_examples],
             "cache": self.cache.export_state(),
