@@ -15,10 +15,14 @@ own here, found by its name:
   ``correct``, with the readings it was set from;
 - ``metrics/<metric>.py``: one reader per metric; a quantity split by
   the cells that report it (``useful_gflop_s.spmv``, ``useful_gflop_s.spmm``,
-  each with its own bound) shares the reader of its base name.
+  each with its own bound) shares the reader of its base name;
+- ``drivers/<driver>.py``: the run of a configuration whose file names
+  that driver (``lm_decode``: a served model's decode loop); a
+  configuration without one runs through ``harness.run_cell``.
 
-The yardstick (the plain reference, the work a product needs, the H100's
-peaks, the reading of the profiler's trace) lives here too, so that a
-change to the program cannot move it. Nothing here imports JAX or the JAX
-package ``repro``.
+The yardstick (the plain references, ``reference.py`` and
+``lm_reference.py``, the weights a model cell draws, the work a product or
+a token needs, the H100's peaks, the reading of the profiler's trace)
+lives here too, so that a change to the program cannot move it. Nothing
+here imports JAX or the JAX package ``repro``.
 """

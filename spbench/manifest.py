@@ -3,7 +3,9 @@
 A cell ``<config>.<mix>`` names a configuration entry, whose ``file`` holds
 the deployment, and a traffic mix, ``traffic/<mix>.json``; its limits are
 ``limits/<cell>.json`` and each metric's reader is ``metrics/<name>.py``
-(or, for ``<base>.<qualifier>``, ``metrics/<base>.py``).
+(or, for ``<base>.<qualifier>``, ``metrics/<base>.py``). A configuration
+whose file names a ``driver`` is run by ``drivers/<driver>.py``; one
+without runs through ``harness.run_cell``.
 Adding a cell, a mix or a metric adds files and manifest entries and edits
 none of these.
 """
@@ -13,6 +15,7 @@ import dataclasses
 import importlib.util
 import json
 import re
+import sys
 from pathlib import Path
 from types import ModuleType
 from typing import Dict, List, Optional
@@ -75,13 +78,15 @@ def resolve(workload: str, root: Path = ROOT,
 
 
 def load_module(path: Path) -> ModuleType:
-    """Import a reader or generator file by its path (metric names may
-    hold dots, which module names cannot)."""
+    """Import a reader, generator or driver file by its path (metric names
+    may hold dots, which module names cannot). The module is entered in
+    ``sys.modules``, as an import would, so its dataclasses resolve."""
     name = "spbench_file_" + re.sub(r"\W", "_", str(path))
     spec = importlib.util.spec_from_file_location(name, path)
     if spec is None or spec.loader is None:
         raise ImportError(f"cannot load {path}")
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
     return mod
 
@@ -99,3 +104,19 @@ def reader(package: Path, metric: str) -> ModuleType:
 
 def generator(package: Path, name: str) -> ModuleType:
     return load_module(package / "gen" / f"{name}.py")
+
+
+def driver(package: Path, name: str) -> ModuleType:
+    """``drivers/<name>.py``: the ``run_cell`` of a configuration that
+    names it."""
+    return load_module(package / "drivers" / f"{name}.py")
+
+
+def runner(cell: Cell):
+    """The ``run_cell`` that runs ``cell``: its configuration's driver, or
+    the sparse harness's."""
+    name = cell.config.get("driver")
+    if name is None:
+        from spbench import harness
+        return harness.run_cell
+    return driver(cell.package, name).run_cell

@@ -6,8 +6,12 @@ For each seed: the program through a short window at the cell's own load
 (``prod_gap`` of its kept products: the lower reading), then the control,
 the plain reference in TF32 put in the program's place and driven through
 the same window on the same inputs (the upper reading). One JSON line per
-seed, then the largest program reading and the smallest control reading.
-The benchmark's own runs never run this.
+seed, then, for each number compared, the largest program reading and the
+smallest control reading beside its limit. A configuration run by a driver
+(``drivers/<name>.py``) takes that driver's ``readings``. Every row gives
+its readings as ``program`` and ``control``, each keyed by the name of the
+number in the cell's limits, so this module names no driver's numbers. The
+benchmark's own runs never run this.
 """
 from __future__ import annotations
 
@@ -28,13 +32,17 @@ def main(argv=None) -> int:
     run.set_environment()
     from spbench import manifest
     cell = manifest.resolve(args.workload)
-    lines = readings(cell, [int(s) for s in args.seeds.split(",")],
-                     args.seconds, args.device)
-    print(json.dumps({
-        "workload": args.workload,
-        "program_max": max(r["program_gap"] for r in lines),
-        "control_min": min(r["control_gap"] for r in lines),
-        "limit": cell.limits["prod_gap"]}), flush=True)
+    seeds = [int(s) for s in args.seeds.split(",")]
+    name = cell.config.get("driver")
+    take = (readings if name is None
+            else manifest.driver(cell.package, name).readings)
+    lines = take(cell, seeds, args.seconds, args.device)
+    for number in lines[0]["program"]:
+        print(json.dumps({
+            "workload": args.workload, "number": number,
+            "program_max": max(r["program"][number] for r in lines),
+            "control_min": min(r["control"][number] for r in lines),
+            "limit": cell.limits[number]}), flush=True)
     return 0
 
 
@@ -65,9 +73,9 @@ def readings(cell, seeds, seconds: float, device="cuda", log=print):
         _, ctrl = reference.judge(ref, cwin.samples, cell.limits, cwin.ops,
                                   cwin.failed)
         row = {"seed": seed, "pick": pick,
-               "program_gap": prog["prod_gap"]["value"],
+               "program": {"prod_gap": prog["prod_gap"]["value"]},
+               "control": {"prod_gap": ctrl["prod_gap"]["value"]},
                "program_products": prog["products_checked"]["value"],
-               "control_gap": ctrl["prod_gap"]["value"],
                "control_products": ctrl["products_checked"]["value"]}
         log(json.dumps(row), flush=True)
         out.append(row)

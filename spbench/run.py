@@ -2,8 +2,10 @@
 
     python -m spbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-from the root of a checkout. It prints the selector's pick on an earlier
-line, then as its last line one JSON object: ``correct``, ``attempted``,
+from the root of a checkout. The cell's configuration picks what runs it
+(``manifest.runner``: its ``driver``, or the sparse harness). It prints
+the selector's pick (in a model cell, its set-up) on an earlier line,
+then as its last line one JSON object: ``correct``, ``attempted``,
 ``failed``, ``metrics`` (the cell's end-to-end metrics, or with
 ``--trace 1`` its per-layer metrics), ``device`` and, traced,
 ``breakdown``; last in it, ``checks``: each number compared with its
@@ -84,7 +86,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     set_environment()
 
-    from spbench import harness, manifest
+    from spbench import manifest
     cell = manifest.resolve(args.workload)
     import repro_torch  # noqa: F401  (the system under test, from src/)
     import torch
@@ -94,8 +96,8 @@ def main(argv=None) -> int:
               f"found {torch.cuda.device_count()}", file=sys.stderr)
         return 2
     torch.cuda.set_device(0)
-    outcome = harness.run_cell(cell, args.seed, args.seconds,
-                               bool(args.trace), device="cuda", t0=T0)
+    outcome = manifest.runner(cell)(cell, args.seed, args.seconds,
+                                    bool(args.trace), device="cuda", t0=T0)
     if outcome.context.window.error:
         print(f"spbench: the window stopped: {outcome.context.window.error}",
               file=sys.stderr)

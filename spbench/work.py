@@ -1,4 +1,5 @@
-"""The work a sparse product needs, whatever container or kernel computes it.
+"""The work a sparse product, or a served model's decode step, needs, whatever
+container or kernel computes it.
 
 ``Y = A X`` with ``A`` an ``n_rows x n_cols`` CSR of ``nnz`` fp32 values and
 ``X`` of ``k`` fp32 columns needs ``2 nnz k`` operations and, reading each
@@ -12,7 +13,7 @@ kernel is held to the same count.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 from . import peaks
 
@@ -29,3 +30,19 @@ def least_seconds(n_rows: int, n_cols: int, nnz: int, k: int) -> float:
     nbytes, flops = needed(n_rows, n_cols, nnz, k)
     return max(nbytes / peaks.HBM_BYTES_PER_S,
                flops / peaks.FP32_FLOP_PER_S)
+
+
+def decode_token_flops(m: Dict, attended: int) -> int:
+    """The model FLOPs of one generated token of a mixture-of-experts
+    decoder of sizes ``m`` (a configuration file's ``model``) whose query
+    attends ``attended`` positions in every layer: twice the matrix
+    parameters on its path (q, k, v, o, the router, its ``top_k`` experts'
+    SwiGLU, the output head), and ``4 H D attended`` a layer for the
+    scores and the weighted values. Counted from the sizes alone: padding,
+    capacity slots and masked cache slots the program computes are not
+    model FLOPs."""
+    d, h, kv, dh = m["d_model"], m["n_heads"], m["n_kv_heads"], m["d_head"]
+    per_layer = (d * h * dh + 2 * d * kv * dh + h * dh * d
+                 + d * m["n_experts"] + m["top_k"] * 3 * d * m["d_ff"])
+    return (2 * (m["n_layers"] * per_layer + d * m["vocab_size"])
+            + 4 * m["n_layers"] * h * dh * attended)
